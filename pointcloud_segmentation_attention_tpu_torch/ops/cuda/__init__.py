@@ -1,0 +1,164 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a), bound with ctypes.
+
+The sources live in the package's ``csrc/``.  ``build()`` compiles each
+source with ``nvcc`` (all started together), links them into one shared
+library with a plain C interface under the package's ``_build/`` directory,
+and loads it; the library is named by a hash of the sources and flags, so a
+changed source is rebuilt and an unchanged one is reused.  Nothing is built
+or imported when this module is imported: the CPU-only test machine never
+reaches ``build()``.
+
+Every wrapper launches on PyTorch's current stream, allocates its outputs
+with ``torch.empty``, raises if the launch reports an error, and adds one to
+its ``launches`` counter when it launches its kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from typing import Dict, Optional
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+SOURCES = ("fps.cu", "ball_query.cu", "group_gather.cu", "three_nn.cu",
+           "three_interpolate.cu")
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    # name: argtypes (pointers, ints, the stream last)
+    "psa_fps": (_P, _P, _P, _I, _I, _I, _P),
+    "psa_ball_query": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P),
+    "psa_group_gather": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "psa_three_nn": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "psa_three_interpolate": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+}
+
+_lock = threading.Lock()
+_lib = None
+build_log = ""
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def library_path() -> str:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            digest.update(name.encode() + f.read())
+    return os.path.join(BUILD_DIR, f"libpsa_kernels_{digest.hexdigest()[:16]}.so")
+
+
+def _compile(so_path: str, verbose: bool) -> str:
+    nvcc = _nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    log = []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        extra = ("-Xptxas", "-v") if verbose else ()
+        procs = []
+        for name in SOURCES:
+            obj = os.path.join(tmp, name.replace(".cu", ".o"))
+            cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", os.path.join(CSRC, name), "-o", obj]
+            procs.append((name, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for name, _, proc in procs:
+            out, _ = proc.communicate()
+            log.append(f"== {name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(name)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(log))
+        tmp_so = os.path.join(tmp, "lib.so")
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp_so, *(o for _, o, _ in procs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(tmp_so, so_path)
+    return "\n".join(log)
+
+
+def build(verbose: bool = False) -> ctypes.CDLL:
+    """Compile (if needed) and load the kernel library; returns it."""
+    global _lib, build_log
+    with _lock:
+        if _lib is not None:
+            return _lib
+        so_path = library_path()
+        if not os.path.exists(so_path):
+            build_log = _compile(so_path, verbose)
+        lib = ctypes.CDLL(so_path)
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+        return lib
+
+
+def check_input(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
+                last: Optional[int] = None) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of the given type/rank."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim or (last is not None and t.shape[-1] != last):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def launch(fn_name: str, device: torch.device, *args) -> None:
+    """Call one C entry point on ``device``'s current stream; raise on error."""
+    lib = build()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = getattr(lib, fn_name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{fn_name}: CUDA launch failed with error {err} "
+            f"({torch.cuda.get_device_name(device)})")
+
+
+def kernels() -> Dict[str, object]:
+    """The five kernel wrappers by name; each has a ``launches`` counter."""
+    from pointcloud_segmentation_attention_tpu_torch.ops.cuda import (
+        ball_query, fps, group_gather, three_interpolate, three_nn,
+    )
+
+    return {
+        "fps": fps.farthest_point_sample,
+        "ball_query": ball_query.ball_query,
+        "group_gather": group_gather.group_point,
+        "three_nn": three_nn.three_nn,
+        "three_interpolate": three_interpolate.three_interpolate,
+    }
+
+
+def reset_launches() -> None:
+    for fn in kernels().values():
+        fn.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in kernels().items()}
