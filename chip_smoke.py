@@ -7,28 +7,45 @@ Run from the repository root on a machine with a CUDA card:
 
 Phases (each raises on failure; the script then exits non-zero):
 
-1. build   -- compile the five CUDA kernels from ``csrc/`` with nvcc (sm_90a).
-2. kernels -- every kernel against its plain PyTorch version on the card at
-              the slice's B16 shapes (SA1-4, FP1-4) and at a large N; index
-              outputs must be equal, floats within rtol=atol=1e-6.  Times
-              each kernel, its plain version and, where one exists, the
-              single PyTorch call computing the same function.
-3. model   -- full-width ``sem_seg_features`` with seeded weights and BN
-              statistics: B2 x 8192 forward on the card (kernels) and on the
-              CPU (plain ops), TF32 off; indices equal at every level, logits
-              within rtol=atol=1e-3.
-4. serve   -- synthetic rooms of 150k points chunked to 8192-point chunks,
-              predicted in batches of 16 through ``make_predict_fn`` and
-              stitched; launch counters are zeroed just before and read just
-              after, and every kernel must have launched.
-5. report  -- one line per kernel, a ``{"kernels": [...]}`` JSON line, the
-              card's name and power limit, and the final
-              ``{"ok": true, "device": {...}}`` line.
+1. build        -- compile the seven CUDA kernels from ``csrc/`` with nvcc
+                   (sm_90a), one nvcc per source, all started together.
+2. kernels      -- every forward kernel against its plain PyTorch version on
+                   the card at the B16 shapes (SA1-4, FP1-4) and at a large N;
+                   index outputs equal, floats within rtol=atol=1e-6.  Times
+                   each kernel, its plain version and, where one exists, the
+                   single PyTorch call computing the same function.
+3. kernels-bwd  -- the two backward kernels (gather scatter-add at SA2-4,
+                   interpolation dP and dw at FP1-4, both also at a large N)
+                   against their plain versions within rtol=atol=1e-5 (f32
+                   atomics: not bit-reproducible); timed like phase 2.
+4. model        -- full-width ``sem_seg_features`` with seeded weights and BN
+                   statistics: B2 x 8192 eval forward on the card and on the
+                   CPU, TF32 off; indices equal at every level, logits within
+                   rtol=atol=1e-3.
+5. serve        -- synthetic rooms of 150k points chunked to 8192-point
+                   chunks, predicted in batches of 16 and stitched; launch
+                   counters are zeroed just before and read just after: every
+                   forward kernel launched, no backward kernel did.
+6. forward      -- B16 x 8192 eval forward time.
+7. train-parity -- one ``seg_train_step`` at full width, B2 x 8192, TF32 and
+                   dropout off, from the same seeded weights and batch on the
+                   card, on the card through the plain ops, on the CPU, and a
+                   float64 CPU reference of the gradients.  See
+                   ``phase_train_parity`` for what is compared.
+8. train        -- B16 x 8192 batches of random chunks (``sample_random_chunk``
+                   then ``make_batch``) from synthetic 150k-point rooms; launch
+                   counters zeroed just before the timed steps and read just
+                   after: all seven kernels launched; every loss finite; five
+                   steps on one batch bring its loss below the first.
+9. report       -- one line per kernel, a ``{"kernels": [...]}`` JSON line, the
+                   card's name and power limit, and the final
+                   ``{"ok": true, "device": {...}}`` line.
 
 Exits non-zero without printing a result when CUDA is not available.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -44,6 +61,10 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 from pointcloud_segmentation_attention_tpu_torch import models, ops  # noqa: E402
+from pointcloud_segmentation_attention_tpu_torch.data.pipeline import make_batch  # noqa: E402
+from pointcloud_segmentation_attention_tpu_torch.data.scannet.chunks import (  # noqa: E402
+    sample_random_chunk,
+)
 from pointcloud_segmentation_attention_tpu_torch.data.scannet.scenes import (  # noqa: E402
     make_synthetic_scene,
 )
@@ -55,12 +76,25 @@ from pointcloud_segmentation_attention_tpu_torch.eval.full_scene import (  # noq
 from pointcloud_segmentation_attention_tpu_torch.models import sem_seg  # noqa: E402
 from pointcloud_segmentation_attention_tpu_torch.ops import cuda as kernels  # noqa: E402
 from pointcloud_segmentation_attention_tpu_torch.ops import geometry as plain  # noqa: E402
+from pointcloud_segmentation_attention_tpu_torch.ops.cuda import (  # noqa: E402
+    group_gather as gather_kernels,
+)
+from pointcloud_segmentation_attention_tpu_torch.ops.cuda import (  # noqa: E402
+    three_interpolate as interp_kernels,
+)
+from pointcloud_segmentation_attention_tpu_torch.train import (  # noqa: E402
+    TrainState,
+    losses,
+    seg_train_step,
+)
+from pointcloud_segmentation_attention_tpu_torch.nn import PointConv  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 EXTENT = np.array([1.9, 1.9, 2.6], np.float32)  # one serving chunk's extent
 FLOAT_TOL = dict(rtol=1e-6, atol=1e-6)
+BWD_TOL = dict(rtol=1e-5, atol=1e-5)   # f32 atomics sum in a run-dependent order
 LOGIT_TOL = dict(rtol=1e-3, atol=1e-3)
 SA_FEATURES = (6, 64, 128, 256)   # feature channels entering SA1-4
 FP_CHANNELS = (512, 256, 256, 128)  # interpolated channels at FP1-4
@@ -72,7 +106,11 @@ KERNEL_INFO = {
     "group_gather": ("group_gather.cu", "group_gather_kernel.py:120"),
     "three_nn": ("three_nn.cu", "three_nn_kernel.py:80"),
     "three_interpolate": ("three_interpolate.cu", "interpolate_kernel.py:109"),
+    "group_gather_bwd": ("group_gather_bwd.cu", "group_gather_kernel.py:195"),
+    "three_interpolate_bwd": ("three_interpolate_bwd.cu", "interpolate_kernel.py:149"),
 }
+FORWARD_KERNELS = ("fps", "ball_query", "group_gather", "three_nn", "three_interpolate")
+BACKWARD_KERNELS = ("group_gather_bwd", "three_interpolate_bwd")
 
 
 def log(msg: str) -> None:
@@ -127,11 +165,13 @@ def phase_build() -> None:
             log(f"[build]   {line.strip()}")
 
 
-def phase_kernels(dev, batch: int, n: int, reps: int) -> dict:
-    """Each kernel against its plain version at every level; returns the
-    per-kernel report (errors, times, bounds)."""
+def phase_kernels(dev, batch: int, n: int, reps: int):
+    """Each forward kernel against its plain version at every level; returns
+    the per-kernel report (errors, times, bounds) and each level's geometry
+    for the backward kernels."""
     rng = np.random.RandomState(0)
-    rep = {k: {"max_abs_err": 0.0, "levels": {}} for k in KERNEL_INFO}
+    rep = {k: {"max_abs_err": 0.0, "levels": {}} for k in FORWARD_KERNELS}
+    geom = {"sa": [], "fp": []}
 
     def err(name, e):
         rep[name]["max_abs_err"] = max(rep[name]["max_abs_err"], e)
@@ -163,6 +203,7 @@ def phase_kernels(dev, batch: int, n: int, reps: int) -> dict:
         if i == 0:
             sa1 = dict(xyz=xyz, new_xyz=new_xyz, idx=idx, cnt=cnt, pts=pts, npoint=npoint,
                        radius=radius, ns=ns)
+        geom["sa"].append((label, idx, xyz.shape[1], pts.shape[-1]))
         log(f"[kernels] {label}: N={xyz.shape[1]} npoint={npoint} r={radius} ns={ns} "
             f"C={pts.shape[-1]} ball hits mean={cnt.float().mean().item():.2f} "
             f"fps/ball_query/group_gather equal")
@@ -187,6 +228,7 @@ def phase_kernels(dev, batch: int, n: int, reps: int) -> dict:
         level_time("three_interpolate", label, lambda: ops.three_interpolate(p2, nidx, w))
         if i == 3:
             fp4 = dict(xyz1=xyz1, xyz2=xyz2, idx=nidx, w=w, p2=p2)
+        geom["fp"].append((label, nidx, w, p2))
         log(f"[kernels] {label}: N={xyz1.shape[1]} M={xyz2.shape[1]} C={FP_CHANNELS[i]} "
             f"three_nn idx equal, interpolate within {FLOAT_TOL}")
 
@@ -259,6 +301,121 @@ def phase_kernels(dev, batch: int, n: int, reps: int) -> dict:
         shape=f"B{b} N{fn_} M{fm} C{fc}")
     rep["three_interpolate"]["bound_ms"], rep["three_interpolate"]["bound_by"] = bound(
         b * fm * fc * 4 + b * fn_ * 3 * 8 + b * fn_ * fc * 4, 5.0 * b * fn_ * fc)
+    geom["large"] = big
+    torch.cuda.synchronize()
+    return rep, geom
+
+
+def phase_kernels_bwd(dev, geom: dict, reps: int) -> dict:
+    """The two backward kernels against their plain versions (rtol = atol =
+    1e-5) at SA2-4 / FP1-4 and a large N; times at SA2 and FP4."""
+    rng = torch.Generator(device=dev).manual_seed(7)
+    rep = {k: {"max_abs_err": 0.0, "levels": {}} for k in BACKWARD_KERNELS}
+
+    def err(name, e):
+        rep[name]["max_abs_err"] = max(rep[name]["max_abs_err"], e)
+
+    def gather_case(label, idx, n, c, timed):
+        b, m, k = idx.shape
+        g = torch.randn(b, m, k, c, device=dev, generator=rng)
+        err("group_gather_bwd", check_close(
+            f"group_gather_bwd {label}", gather_kernels.group_point_backward(g, idx, n),
+            plain.group_point_backward(g, idx, n), BWD_TOL))
+        if timed:
+            rep["group_gather_bwd"]["levels"][label] = time_ms(
+                lambda: gather_kernels.group_point_backward(g, idx, n), reps)
+        return g
+
+    def interp_case(label, idx, w, p2, timed):
+        g = torch.randn(idx.shape[0], idx.shape[1], p2.shape[-1], device=dev, generator=rng)
+        dp, dw = interp_kernels.three_interpolate_backward(g, idx, w, p2)
+        pdp, pdw = plain.three_interpolate_backward(g, idx, w, p2)
+        err("three_interpolate_bwd", check_close(f"three_interpolate_bwd dP {label}", dp, pdp,
+                                                 BWD_TOL))
+        err("three_interpolate_bwd", check_close(f"three_interpolate_bwd dw {label}", dw, pdw,
+                                                 BWD_TOL))
+        no_dw = interp_kernels.three_interpolate_backward(g, idx, w, p2, need_dw=False)
+        if no_dw[1] is not None:
+            raise AssertionError("three_interpolate_bwd returned dw when not asked")
+        err("three_interpolate_bwd", check_close(f"three_interpolate_bwd dP only {label}",
+                                                 no_dw[0], pdp, BWD_TOL))
+        if timed:
+            rep["three_interpolate_bwd"]["levels"][label] = time_ms(
+                lambda: interp_kernels.three_interpolate_backward(g, idx, w, p2), reps)
+        return g
+
+    heads = {}
+    for label, idx, n, c in geom["sa"][1:]:  # SA1's input carries no gradient
+        g = gather_case(label, idx, n, c, True)
+        if label == "SA2":
+            heads["gather"] = (g, idx, n)
+    for label, idx, w, p2 in geom["fp"]:
+        g = interp_case(label, idx, w, p2, True)
+        if label == "FP4":
+            heads["interp"] = (g, idx, w, p2)
+    log(f"[kernels-bwd] SA2-4 gather backward and FP1-4 interpolation backward (dP, dw) "
+        f"within {BWD_TOL}")
+
+    # Large N: 33,024 rows scattered into, and interpolated from.
+    big = geom["large"]
+    n_big = big.shape[1]
+    big_idx = torch.randint(0, n_big, (2, 4096, 32), device=dev, dtype=torch.int32,
+                            generator=rng)
+    gather_case("large N", big_idx, n_big, 64, False)
+    known = big[:, :1024].contiguous()
+    dist, nidx = ops.three_nn(big, known)
+    interp_case("large N", nidx, plain.interpolation_weights(dist),
+                torch.randn(2, 1024, 128, device=dev, generator=rng), False)
+    torch.cuda.synchronize()
+    log(f"[kernels-bwd] large N={n_big}: gather backward (2 x 4096 x 32 rows, C64) and "
+        f"interpolation backward (M1024, C128) within {BWD_TOL}")
+
+    # Gather backward at SA2: bytes of g, idx and dP; one add per g element.
+    g, idx, n = heads["gather"]
+    b, m, k, c = g.shape
+    rows = (idx.long().reshape(b, m * k) + torch.arange(b, device=dev)[:, None] * n).reshape(-1)
+    flat_g = g.reshape(-1, c)
+
+    def index_add():
+        return torch.zeros(b * n, c, device=dev).index_add_(0, rows, flat_g)
+
+    check_close("group_gather_bwd library", index_add().reshape(b, n, c),
+                plain.group_point_backward(g, idx, n), BWD_TOL)
+    rep["group_gather_bwd"].update(
+        ms=rep["group_gather_bwd"]["levels"]["SA2"],
+        plain_ms=time_ms(lambda: plain.group_point_backward(g, idx, n), reps),
+        library_ms=time_ms(index_add, reps), library_call="zeros().index_add_(rows)",
+        shape=f"B{b} N{n} M{m} ns{k} C{c}")
+    rep["group_gather_bwd"]["bound_ms"], rep["group_gather_bwd"]["bound_by"] = bound(
+        b * m * k * c * 4 + b * m * k * 4 + b * n * c * 4, float(b * m * k * c))
+
+    # Interpolation backward at FP4: g, idx, w and P read, dP and dw written.
+    g, idx, w, p2 = heads["interp"]
+    b, fn_, fc = g.shape
+    fm = p2.shape[1]
+    gidx = (idx.long() + torch.arange(b, device=dev)[:, None, None] * fm).reshape(-1, 3)
+    table = p2.reshape(-1, fc).detach().requires_grad_()
+    bw = w.reshape(-1, 3).detach().requires_grad_()
+    out = torch.nn.functional.embedding_bag(gidx, table, mode="sum", per_sample_weights=bw)
+    flat_out_g = g.reshape(-1, fc)
+
+    def embedding_bag_backward():
+        return torch.autograd.grad(out, (table, bw), flat_out_g, retain_graph=True)
+
+    ldp, ldw = embedding_bag_backward()
+    pdp, pdw = plain.three_interpolate_backward(g, idx, w, p2)
+    check_close("three_interpolate_bwd library dP", ldp.reshape(b, fm, fc), pdp, BWD_TOL)
+    check_close("three_interpolate_bwd library dw", ldw.reshape(b, fn_, 3), pdw, BWD_TOL)
+    rep["three_interpolate_bwd"].update(
+        ms=rep["three_interpolate_bwd"]["levels"]["FP4"],
+        plain_ms=time_ms(lambda: plain.three_interpolate_backward(g, idx, w, p2), reps),
+        library_ms=time_ms(embedding_bag_backward, reps),
+        library_call="embedding_bag(mode='sum', per_sample_weights) backward",
+        shape=f"B{b} N{fn_} M{fm} C{fc} (dP and dw)")
+    rep["three_interpolate_bwd"]["bound_ms"], rep["three_interpolate_bwd"]["bound_by"] = bound(
+        b * fn_ * fc * 4 + b * fn_ * 3 * 8 + 2 * b * fm * fc * 4 + b * fn_ * 3 * 4,
+        12.0 * b * fn_ * fc)
+    del out
     torch.cuda.synchronize()
     return rep
 
@@ -335,9 +492,11 @@ def phase_serve(model, dev, scene_points: int, n_scenes: int, npoints: int,
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in FORWARD_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"serve phase never launched {missing}")
+    if any(launches[k] for k in BACKWARD_KERNELS):
+        raise AssertionError(f"serving launched backward kernels: {launches}")
     for scene, _, labels in served:
         if labels.shape != (len(scene["points"]),) or labels.min() < 0 or labels.max() >= 21:
             raise AssertionError("served labels have the wrong shape or range")
@@ -373,6 +532,209 @@ def phase_forward_time(model, dev, batch: int, n: int, reps: int) -> float:
     return ms
 
 
+@contextlib.contextmanager
+def plain_ops():
+    """Route the model's geometry ops to the plain PyTorch versions, on any
+    device, for as long as the context lasts.  Used only to hold the
+    kernels' autograd path against the plain one on the card."""
+    swap = {
+        "farthest_point_sample": plain.farthest_point_sample,
+        "ball_query": plain.ball_query,
+        "group_point_with_counts": lambda points, idx, cnt=None: plain.group_point(points, idx),
+        "three_nn": plain.three_nn,
+        "three_interpolate": plain.three_interpolate,
+    }
+    saved = {name: getattr(ops, name) for name in swap}
+    for name, fn in swap.items():
+        setattr(ops, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def _train_batch(scenes, rng: np.random.RandomState, batch: int, npoints: int) -> dict:
+    """One training batch: random chunks of random rooms, stacked by
+    ``make_batch`` (f32 wire, colors and normals)."""
+    chunks = []
+    for _ in range(batch):
+        sc = scenes[rng.randint(len(scenes))]
+        p, lab, col, nrm, w = sample_random_chunk(sc["points"], sc["labels"], sc["colors"],
+                                                  sc["normals"], npoints, rng)
+        chunks.append({"points": p, "labels": lab, "colors": col, "normals": nrm, "weights": w})
+    return make_batch(chunks, True, True, "f32")
+
+
+def _noise_biases(model) -> set:
+    """Biases feeding a train-mode BN: their exact gradient is 0, and what
+    either device computes for them is rounding noise."""
+    return {name + ".bias" for name, mod in model.named_modules()
+            if isinstance(mod, PointConv) and mod.bn is not None}
+
+
+def _one_step(model, batch: dict):
+    """(loss, gradients, BN statistics) of one ``seg_train_step``, on the CPU."""
+    _, m = seg_train_step(TrainState(model), batch)
+    grads = {k: p.grad.detach().double().cpu() for k, p in model.named_parameters()}
+    stats = {k: v.detach().cpu() for k, v in model.named_buffers()}
+    return float(m["loss"]), grads, stats
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def phase_train_parity(dev, scenes, n: int) -> dict:
+    """One full-width training step, B2 x n, TF32 and dropout off, from the
+    same seeded weights and batch:
+
+    - card (kernels) vs CPU (plain ops): FPS, ball-query and three-NN indices
+      equal at every level; loss within rtol 1e-4; BN running statistics
+      within rtol 1e-4 (atol 1e-5, for means near 0).  Gradients: a ReLU and
+      max-pool network's gradient is discontinuous in its forward values, so
+      two float32 forwards that differ by rounding route some of it
+      differently (measured on the CPU at B1 x 2048: the float32 gradients
+      are up to 2.8e-3 from float64 in relative L2, while reordering the
+      backward's sums alone moves them by 2e-6).  So every gradient tensor is
+      held to: its relative L2 distance from a float64 CPU run is at most
+      twice the largest such distance of the float32 CPU run (+1e-6).
+    - card (kernels) vs card (plain ops): the forwards are the same
+      computation bit for bit, so only the backward kernels' summation order
+      differs: every gradient within rtol 1e-3, atol 1e-5 x max|g| of its
+      tensor; the biases with an exact gradient of 0 below 1e-5 x the
+      largest gradient on both sides.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batch = _train_batch(scenes, np.random.RandomState(3), 2, n)
+    base = models.seeded_model("sem_seg_features", seed=0, device="cpu", dropout_rate=0.0)
+    card, on_plain, ref64 = (copy.deepcopy(base).to(dev), copy.deepcopy(base).to(dev),
+                             copy.deepcopy(base).double())
+    card_levels, h1 = _capture_levels(card)
+    cpu_levels, h2 = _capture_levels(base)
+    t0 = time.perf_counter()
+    loss_card, g_card, bn_card = _one_step(card, batch)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_cpu, g_cpu, bn_cpu = _one_step(base, batch)
+    t_cpu = time.perf_counter() - t0
+    for h in h1 + h2:
+        h.remove()
+    with plain_ops():
+        loss_plain, g_plain, _ = _one_step(on_plain, batch)
+    t0 = time.perf_counter()
+    ref64.train()
+    logits = ref64(torch.from_numpy(batch["points"]).double(),
+                   torch.from_numpy(batch["features"]).double())
+    w = torch.from_numpy(batch["weights"]).double()
+    ce = losses.softmax_cross_entropy(logits, torch.from_numpy(batch["labels"]))
+    ((ce * w).sum() / (w != 0).sum().clamp_min(1)).backward()
+    g64 = {k: p.grad.detach() for k, p in ref64.named_parameters()}
+    t_64 = time.perf_counter() - t0
+
+    pts = torch.from_numpy(batch["points"])
+    xyzs = [pts] + [cpu_levels[i][0] for i in range(4)]
+    for i in range(4):
+        check_equal(f"train SA{i + 1} centres", card_levels[i][0], cpu_levels[i][0])
+        check_equal(f"train SA{i + 1} ball_query", card_levels[i][1], cpu_levels[i][1])
+        lvl = 3 - i
+        _, di = ops.three_nn(xyzs[lvl].to(dev), xyzs[lvl + 1].to(dev))
+        check_equal(f"train FP{i + 1} three_nn", di, plain.three_nn(xyzs[lvl], xyzs[lvl + 1])[1])
+    if not np.isfinite(loss_card):
+        raise AssertionError(f"train-parity loss not finite: {loss_card}")
+    np.testing.assert_allclose(loss_card, loss_cpu, rtol=1e-4, err_msg="train-parity loss")
+    np.testing.assert_allclose(loss_card, loss_plain, rtol=1e-6, err_msg="card plain loss")
+    for k in bn_cpu:
+        check_close(f"train-parity BN {k}", bn_card[k], bn_cpu[k], dict(rtol=1e-4, atol=1e-5))
+
+    noise = _noise_biases(base)
+    real = [k for k in g_cpu if k not in noise]
+    g_max = max(float(g_cpu[k].abs().max()) for k in real)
+    cpu_err = {k: _rel_l2(g_cpu[k], g64[k]) for k in real}
+    card_err = {k: _rel_l2(g_card[k], g64[k]) for k in real}
+    limit = 2.0 * max(cpu_err.values()) + 1e-6
+    bad = {k: v for k, v in card_err.items() if v > limit}
+    if bad:
+        raise AssertionError(f"card gradients farther from float64 than {limit:.3e}: {bad}")
+    kernel_err = 0.0
+    for k, g in g_card.items():
+        if k in noise:
+            if max(float(g.abs().max()), float(g_plain[k].abs().max())) >= 1e-5 * g_max:
+                raise AssertionError(f"gradient of {k} (exactly 0) is not noise-sized")
+            continue
+        scale = float(g_plain[k].abs().max())
+        check_close(f"card kernels vs card plain grad {k}", g, g_plain[k],
+                    dict(rtol=1e-3, atol=1e-5 * scale))
+        kernel_err = max(kernel_err, float((g - g_plain[k]).abs().max()) / max(scale, 1e-30))
+    res = dict(loss_card=loss_card, loss_cpu=loss_cpu, loss_card_plain=loss_plain,
+               grad_rel_l2_card_vs_f64_max=max(card_err.values()),
+               grad_rel_l2_cpu_vs_f64_max=max(cpu_err.values()),
+               grad_rel_l2_card_vs_cpu_max=max(_rel_l2(g_card[k], g_cpu[k]) for k in real),
+               grad_max_err_kernels_vs_plain_on_card=kernel_err,
+               first_step_card_s=t_card, step_cpu_s=t_cpu, f64_cpu_s=t_64)
+    log(f"[train-parity] full width B2 x {n}, TF32 and dropout off: indices equal at "
+        f"SA1-4/FP1-4; loss card {loss_card:.7f} cpu {loss_cpu:.7f} card-plain {loss_plain:.7f}; "
+        f"BN statistics within rtol 1e-4; gradients rel-L2 from float64: card max "
+        f"{res['grad_rel_l2_card_vs_f64_max']:.3e}, cpu max {res['grad_rel_l2_cpu_vs_f64_max']:.3e}"
+        f" (card vs cpu max {res['grad_rel_l2_card_vs_cpu_max']:.3e}); card kernels vs card "
+        f"plain max |dg|/max|g| {kernel_err:.3e}; first step card {t_card:.2f} s, cpu "
+        f"{t_cpu:.2f} s, f64 {t_64:.2f} s")
+    return res
+
+
+def phase_train(dev, scenes, batch: int, npoints: int, steps: int, warmup: int) -> dict:
+    """``steps`` timed training steps on fresh random batches, then five
+    steps on one batch.  Launch counters cover the timed steps only."""
+    rng = np.random.RandomState(11)
+    t0 = time.perf_counter()
+    batches = [_train_batch(scenes, rng, batch, npoints) for _ in range(warmup + steps)]
+    t_data = time.perf_counter() - t0
+    state = TrainState(models.seeded_model("sem_seg_features", seed=0, device=dev))
+    for b in batches[:warmup]:
+        seg_train_step(state, b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    events, step_losses = [], []
+    t0 = time.perf_counter()
+    for b in batches[warmup:]:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, m = seg_train_step(state, b)
+        end.record()
+        events.append((start, end))
+        step_losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    missing = [k for k in KERNEL_INFO if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"train phase never launched {missing}")
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    step_losses = [float(v) for v in step_losses]
+    if not all(np.isfinite(step_losses)):
+        raise AssertionError(f"non-finite training loss: {step_losses}")
+    fixed = batches[warmup]
+    repeat = [float(seg_train_step(state, fixed)[1]["loss"]) for _ in range(5)]
+    if not min(repeat[1:]) < repeat[0]:
+        raise AssertionError(f"five steps on one batch did not lower its loss: {repeat}")
+    med = float(np.median(step_ms))
+    res = dict(batch=batch, npoints=npoints, steps=steps, step_ms_median=med,
+               step_ms=step_ms, points_per_s=batch * npoints / (med / 1e3),
+               wall_s=wall, data_s=t_data, peak_bytes=peak, launches=launches,
+               launches_per_step={k: v / steps for k, v in launches.items()},
+               losses=step_losses, repeat_losses=repeat)
+    log(f"[train] B{batch} x {npoints}, {steps} steps after {warmup} warm-up: median step "
+        f"{med:.3f} ms ({res['points_per_s']:.0f} points/s), wall {wall:.3f} s; "
+        f"max_memory_allocated {peak / 2**20:.1f} MiB; batches made on the host in "
+        f"{t_data:.1f} s; losses {step_losses[0]:.3f} .. {step_losses[-1]:.3f}, all finite; "
+        f"one batch x5: {' '.join(f'{v:.3f}' for v in repeat)}")
+    log(f"[train] launches in the train window: {json.dumps(launches)}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script drives the GPU port",
@@ -383,10 +745,15 @@ def main() -> int:
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     phase_build()
-    rep = phase_kernels(dev, batch=16, n=8192, reps=20)
+    rep, geom = phase_kernels(dev, batch=16, n=8192, reps=20)
+    rep.update(phase_kernels_bwd(dev, geom, reps=20))
+    del geom
     model = phase_model(dev, n=8192)
     serve = phase_serve(model, dev, scene_points=150_000, n_scenes=3, npoints=8192, batch=16)
     fwd_ms = phase_forward_time(model, dev, batch=16, n=8192, reps=10)
+    rooms = [make_synthetic_scene(150_000, seed=200 + s) for s in range(4)]
+    parity = phase_train_parity(dev, rooms, n=8192)
+    train = phase_train(dev, rooms, batch=16, npoints=8192, steps=20, warmup=3)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -394,15 +761,17 @@ def main() -> int:
     line = []
     for name, (src, pallas) in KERNEL_INFO.items():
         r = rep[name]
+        launches = (serve if name in FORWARD_KERNELS else train)["launches"][name]
         levels = " ".join(f"{k}={v:.4f}" for k, v in r["levels"].items())
-        log(f"[report] {name:17s} launches={serve['launches'][name]:4d} {r['shape']}: "
+        log(f"[report] {name:21s} launches={launches:4d} {r['shape']}: "
             f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
             f"{'-' if r['library_ms'] is None else format(r['library_ms'], '.4f')} ms, "
             f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}); per level ms: {levels}; "
             f"max_abs_err {r['max_abs_err']}")
         line.append({
             "name": name, "route": "cuda", "source": CSRC + src,
-            "replaces": PALLAS + pallas, "launches": serve["launches"][name],
+            "replaces": PALLAS + pallas, "launches": launches,
+            "launch_window": "serve" if name in FORWARD_KERNELS else "train",
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "parity": "pass", "shape": r["shape"],
@@ -412,6 +781,7 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "kernels": line, "serve": serve, "forward_b16_ms": fwd_ms,
+                   "train_parity": parity, "train": train,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))

@@ -10,7 +10,11 @@ reaches ``build()``.
 
 Every wrapper launches on PyTorch's current stream, allocates its outputs
 with ``torch.empty``, raises if the launch reports an error, and adds one to
-its ``launches`` counter when it launches its kernel.
+its ``launches`` counter when it launches its kernel.  The gather and the
+interpolation are differentiable through ``torch.autograd.Function``s whose
+backward is a kernel too (``group_gather.GroupPoint``,
+``three_interpolate.ThreeInterpolate``); a wrapper that has no backward
+refuses to run where autograd would need one (``refuse_grad``).
 """
 from __future__ import annotations
 
@@ -28,8 +32,8 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("fps.cu", "ball_query.cu", "group_gather.cu", "three_nn.cu",
-           "three_interpolate.cu")
+SOURCES = ("fps.cu", "ball_query.cu", "group_gather.cu", "group_gather_bwd.cu",
+           "three_nn.cu", "three_interpolate.cu", "three_interpolate_bwd.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -39,8 +43,10 @@ _SIGNATURES = {
     "psa_fps": (_P, _P, _P, _I, _I, _I, _P),
     "psa_ball_query": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P),
     "psa_group_gather": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "psa_group_gather_bwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "psa_three_nn": (_P, _P, _P, _P, _I, _I, _I, _P),
     "psa_three_interpolate": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "psa_three_interpolate_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -128,6 +134,15 @@ def check_input(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name} must be contiguous")
 
 
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise if autograd would need a gradient through a kernel that has no
+    backward: its result would silently be detached from the graph."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: this kernel has no backward; call it under torch.no_grad() "
+            "or on tensors that do not require grad")
+
+
 def launch(fn_name: str, device: torch.device, *args) -> None:
     """Call one C entry point on ``device``'s current stream; raise on error."""
     lib = build()
@@ -141,7 +156,8 @@ def launch(fn_name: str, device: torch.device, *args) -> None:
 
 
 def kernels() -> Dict[str, object]:
-    """The five kernel wrappers by name; each has a ``launches`` counter."""
+    """The seven kernel wrappers by name (five forward, two backward); each
+    has a ``launches`` counter."""
     from pointcloud_segmentation_attention_tpu_torch.ops.cuda import (
         ball_query, fps, group_gather, three_interpolate, three_nn,
     )
@@ -150,8 +166,10 @@ def kernels() -> Dict[str, object]:
         "fps": fps.farthest_point_sample,
         "ball_query": ball_query.ball_query,
         "group_gather": group_gather.group_point,
+        "group_gather_bwd": group_gather.group_point_backward,
         "three_nn": three_nn.three_nn,
         "three_interpolate": three_interpolate.three_interpolate,
+        "three_interpolate_bwd": three_interpolate.three_interpolate_backward,
     }
 
 

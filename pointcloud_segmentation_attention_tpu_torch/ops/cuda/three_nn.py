@@ -5,14 +5,20 @@ from typing import Tuple
 
 import torch
 
-from pointcloud_segmentation_attention_tpu_torch.ops.cuda import check_input, launch
+from pointcloud_segmentation_attention_tpu_torch.ops.cuda import (
+    check_input,
+    launch,
+    refuse_grad,
+)
 
 
 def three_nn(xyz1: torch.Tensor, xyz2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B,N,3) unknown, (B,M,3) known f32 CUDA -> squared dist (B,N,3) ascending,
-    idx (B,N,3) int32; slots beyond M hold FLT_MAX and index 0."""
+    idx (B,N,3) int32; slots beyond M hold FLT_MAX and index 0.  The
+    distances carry no gradient, so inputs that require one are refused."""
     check_input(xyz1, "xyz1", torch.float32, 3, last=3)
     check_input(xyz2, "xyz2", torch.float32, 3, last=3)
+    refuse_grad("three_nn", xyz1, xyz2)
     b, n, _ = xyz1.shape
     m = xyz2.shape[1]
     if xyz2.shape[0] != b or xyz2.device != xyz1.device:

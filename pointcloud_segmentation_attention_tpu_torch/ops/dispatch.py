@@ -3,6 +3,10 @@ for a CPU tensor.
 
 There is no backend switch and no fallback: a CUDA tensor always goes to its
 kernel in ``ops/cuda/``, and a kernel that fails to build or launch raises.
+The gather and the interpolation go through autograd functions whose
+backward is a kernel as well, so training on the card gets its gradients
+from ``csrc/*_bwd.cu``; on the CPU, autograd differentiates the plain
+version.
 The plain versions in ``ops/geometry.py`` serve CPU tensors (the tests) and
 are the oracles the kernels are held against.
 """
@@ -49,7 +53,7 @@ def group_point_with_counts(points: torch.Tensor, idx: torch.Tensor,
     if _on_cuda(points):
         from pointcloud_segmentation_attention_tpu_torch.ops.cuda import group_gather
 
-        return group_gather.group_point(points, idx)
+        return group_gather.GroupPoint.apply(points, idx)
     return geometry.group_point(points, idx)
 
 
@@ -68,5 +72,5 @@ def three_interpolate(points: torch.Tensor, idx: torch.Tensor,
             three_interpolate,
         )
 
-        return three_interpolate.three_interpolate(points, idx, weight)
+        return three_interpolate.ThreeInterpolate.apply(points, idx, weight)
     return geometry.three_interpolate(points, idx, weight)

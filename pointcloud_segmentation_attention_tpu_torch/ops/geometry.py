@@ -153,6 +153,37 @@ def three_interpolate(points: torch.Tensor, idx: torch.Tensor,
     return g[:, :, 0] * w[:, :, 0] + g[:, :, 1] * w[:, :, 1] + g[:, :, 2] * w[:, :, 2]
 
 
+def group_point_backward(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """The gradient of ``group_point`` with respect to ``points``: g (B,M,K,C),
+    idx (B,M,K) -> dP (B,n,C), each row the sum of the g rows gathered from
+    it, by ``index_add_`` over the flattened rows.  The oracle of
+    ``csrc/group_gather_bwd.cu``; autograd on the CPU differentiates
+    ``group_point`` itself."""
+    b, m, k, c = g.shape
+    offset = torch.arange(b, device=g.device)[:, None] * n
+    rows = (idx.reshape(b, m * k).long() + offset).reshape(-1)
+    dp = g.new_zeros((b * n, c))
+    dp.index_add_(0, rows, g.reshape(b * m * k, c))
+    return dp.reshape(b, n, c)
+
+
+def three_interpolate_backward(g: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor,
+                               points: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradients of ``three_interpolate``: g (B,N,C) -> dP (B,M,C), the
+    scatter-add of ``weight[b,n,k] * g[b,n]`` into rows ``idx[b,n,k]``, and
+    dw (B,N,3), ``dw[b,n,k] = <g[b,n], points[b, idx[b,n,k]]>``; idx gets
+    none.  The oracle of ``csrc/three_interpolate_bwd.cu``."""
+    b, n, c = g.shape
+    m = points.shape[1]
+    offset = torch.arange(b, device=g.device)[:, None, None] * m
+    rows = (idx.long() + offset).reshape(-1)
+    contrib = (weight[..., None] * g[:, :, None, :]).reshape(b * n * 3, c)
+    dp = g.new_zeros((b * m, c))
+    dp.index_add_(0, rows, contrib)
+    dw = (group_point(points, idx) * g[:, :, None, :]).sum(dim=-1)
+    return dp.reshape(b, m, c), dw
+
+
 def interpolation_weights(dist: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
     """Inverse-distance weights over the 3 neighbours, normalised to sum to 1;
     dist are squared distances, clamped below at ``eps``."""

@@ -1,19 +1,21 @@
-"""Where the serving time goes on the card: a profiler breakdown.
+"""Where the serving and training time goes on the card: a profiler breakdown.
 
     python -m pointcloud_segmentation_attention_tpu_torch.utils.trace_breakdown
 
 Runs full-width ``sem_seg_features`` (seeded weights) on CUDA and profiles
-two windows with ``torch.profiler`` (CPU + CUDA activities):
+three windows with ``torch.profiler`` (CPU + CUDA activities):
 
 1. ``forward``: ``STEPS`` eval forwards at B16 x 8192, the serving batch.
 2. ``serve``: one synthetic 150k-point room through the whole serving path
    (chunk, predict in batches, stitch), with the host time of each stage on
    the host clock.
+3. ``train``: ``STEPS`` training steps (``seg_train_step``) at B16 x 8192 on
+   batches of random chunks of synthetic rooms, made before the window.
 
-For each window it prints the device time per kernel group (the five CUDA
-kernels by name, GEMMs, the rest), the window's wall time and the device's
-busy share (kernel time over wall).  The JSON result and a Chrome trace of
-each window go to ``chiprun_out/``.
+For each window it prints the device time per kernel group (the CUDA
+kernels of ``csrc/`` by name, GEMMs, the rest), the window's wall time and
+the device's busy share (kernel time over wall).  The JSON result and a
+Chrome trace of each window go to the output directory ``OUT``.
 """
 from __future__ import annotations
 
@@ -28,7 +30,11 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from pointcloud_segmentation_attention_tpu_torch import models
-from pointcloud_segmentation_attention_tpu_torch.data.pipeline import assemble_features
+from pointcloud_segmentation_attention_tpu_torch.data.pipeline import (
+    assemble_features,
+    make_batch,
+)
+from pointcloud_segmentation_attention_tpu_torch.data.scannet.chunks import sample_random_chunk
 from pointcloud_segmentation_attention_tpu_torch.data.scannet.scenes import (
     make_synthetic_scene,
 )
@@ -38,10 +44,15 @@ from pointcloud_segmentation_attention_tpu_torch.eval.full_scene import (
     scene_chunks,
 )
 from pointcloud_segmentation_attention_tpu_torch.ops import cuda as kernels
-from pointcloud_segmentation_attention_tpu_torch.train import seg_predict_step
+from pointcloud_segmentation_attention_tpu_torch.train import (
+    TrainState,
+    seg_predict_step,
+    seg_train_step,
+)
 
 OWN_KERNELS = ("fps_kernel", "ball_query_kernel", "group_gather_kernel",
-               "three_nn_kernel", "three_interpolate_kernel")
+               "group_gather_bwd_kernel", "three_nn_kernel", "three_interpolate_kernel",
+               "three_interpolate_dp_kernel", "three_interpolate_dw_kernel")
 EXTENT = np.array([1.9, 1.9, 2.6], np.float32)
 BATCH, NPOINTS, STEPS, SCENE_POINTS, SEED = 16, 8192, 5, 150_000, 0
 OUT = "chiprun_out"
@@ -57,6 +68,10 @@ def _group(name: str) -> str:
         return "gemm"
     if "memcpy" in low or "memset" in low:
         return "memcpy/memset"
+    if "reduce_kernel" in low:
+        return "reductions (BN statistics, sums)"
+    if "elementwise_kernel" in low:
+        return "elementwise"
     return "other kernels"
 
 
@@ -66,7 +81,10 @@ def device_breakdown(prof, wall_s: float) -> dict:
     count = defaultdict(int)
     by_name = defaultdict(float)
     for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        # A GPU user annotation (e.g. ``Optimizer.step#Adam.step``) spans the
+        # kernels it encloses; counting it would count them twice.
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)):
             continue
         g = _group(evt.name)
         us = evt.time_range.elapsed_us()
@@ -148,17 +166,48 @@ def main() -> int:
     print(f"   host stages: chunk {stages['chunk_ms']:.1f} ms, predict + stitch "
           f"{stages['predict_and_stitch_ms']:.1f} ms", flush=True)
 
+    # Training: batches of random chunks, made before the window.
+    rooms = [make_synthetic_scene(SCENE_POINTS, seed=SEED + 3 + s) for s in range(2)]
+    brng = np.random.RandomState(SEED)
+    batches = []
+    for _ in range(3 + STEPS):
+        chunks = []
+        for _ in range(BATCH):
+            room = rooms[brng.randint(len(rooms))]
+            p, lab, col, nrm, w = sample_random_chunk(room["points"], room["labels"],
+                                                      room["colors"], room["normals"],
+                                                      NPOINTS, brng)
+            chunks.append({"points": p, "labels": lab, "colors": col, "normals": nrm,
+                           "weights": w})
+        batches.append(make_batch(chunks, True, True, "f32"))
+    state = TrainState(models.seeded_model("sem_seg_features", seed=SEED, device=dev))
+    for b in batches[:3]:
+        seg_train_step(state, b)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for b in batches[3:]:
+            seg_train_step(state, b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    trn = device_breakdown(prof, wall)
+    trn["per_step_ms"] = wall * 1e3 / STEPS
+    prof.export_chrome_trace(os.path.join(OUT, "trace_train.json"))
+    _print(f"train x{STEPS} (B{BATCH} x {NPOINTS})", trn)
+
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
     print(card)
     result = {"device": torch.cuda.get_device_name(0), "card": card, "forward": fwd, "serve": srv,
-              "batch": BATCH, "npoints": NPOINTS}
+              "train": trn, "batch": BATCH, "npoints": NPOINTS}
     with open(os.path.join(OUT, "trace_breakdown.json"), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps({"forward_ms": fwd["per_forward_ms"],
                       "forward_busy_share": fwd["device_busy_share"],
-                      "serve_busy_share": srv["device_busy_share"]}))
+                      "serve_busy_share": srv["device_busy_share"],
+                      "train_step_ms": trn["per_step_ms"],
+                      "train_busy_share": trn["device_busy_share"]}))
     return 0
 
 
