@@ -9,35 +9,49 @@ Phases (each raises on failure; the script then exits non-zero):
 
 1. build        -- compile the seven CUDA kernels from ``csrc/`` with nvcc
                    (sm_90a), one nvcc per source, all started together.
-2. kernels      -- every forward kernel against its plain PyTorch version on
-                   the card at the B16 shapes (SA1-4, FP1-4) and at a large N;
-                   index outputs equal, floats within rtol=atol=1e-6.  Times
-                   each kernel, its plain version and, where one exists, the
-                   single PyTorch call computing the same function.
-3. kernels-bwd  -- the two backward kernels (gather scatter-add at SA2-4,
-                   interpolation dP and dw at FP1-4, both also at a large N)
-                   against their plain versions within rtol=atol=1e-5 (f32
-                   atomics: not bit-reproducible); timed like phase 2.
-4. model        -- full-width ``sem_seg_features`` with seeded weights and BN
+2. model        -- full-width ``sem_seg_features`` with seeded weights and BN
                    statistics: B2 x 8192 eval forward on the card and on the
                    CPU, TF32 off; indices equal at every level, logits within
                    rtol=atol=1e-3.
-5. serve        -- synthetic rooms of 150k points chunked to 8192-point
+3. serve        -- synthetic rooms of 150k points chunked to 8192-point
                    chunks, predicted in batches of 16 and stitched; launch
                    counters are zeroed just before and read just after: every
                    forward kernel launched, no backward kernel did.
-6. forward      -- B16 x 8192 eval forward time.
-7. train-parity -- one ``seg_train_step`` at full width, B2 x 8192, TF32 and
+4. forward      -- B16 x 8192 eval forward time.
+5. train-parity -- one ``seg_train_step`` at full width, B2 x 8192, TF32 and
                    dropout off, from the same seeded weights and batch on the
                    card, on the card through the plain ops, on the CPU, and a
                    float64 CPU reference of the gradients.  See
                    ``phase_train_parity`` for what is compared.
-8. train        -- B16 x 8192 batches of random chunks (``sample_random_chunk``
+6. train        -- B16 x 8192 batches of random chunks (``sample_random_chunk``
                    then ``make_batch``) from synthetic 150k-point rooms; launch
                    counters zeroed just before the timed steps and read just
                    after: all seven kernels launched; every loss finite; five
                    steps on one batch bring its loss below the first.
-9. report       -- one line per kernel, a ``{"kernels": [...]}`` JSON line, the
+7. kernels      -- every forward kernel against its plain PyTorch version on
+                   the card at the B16 shapes (SA1-4, FP1-4) and at a large N;
+                   index outputs equal, floats within rtol=atol=1e-6.  FPS
+                   also at edge shapes that run every variant of
+                   ``ops/cuda/fps.py:plan`` (B1, B17, npoint 1 and N, ragged
+                   N, duplicate points, shared- and device-memory clouds);
+                   the gather also on random idx at odd (nsample, C).  Times
+                   each kernel, its plain version and, where one exists, the
+                   single PyTorch call computing the same function: wall
+                   time of bursts of calls (``time_ms``, which includes the
+                   host launch cost).
+8. kernels-bwd  -- the two backward kernels (gather scatter-add at SA2-4,
+                   interpolation dP and dw at FP1-4, both also at a large N)
+                   against their plain versions within rtol=atol=1e-5 (f32
+                   atomics: not bit-reproducible); timed like phase 7.
+9. device-times -- device-only time of every timed kernel level and library
+                   call from the profiler's kernel events (``device_ms``);
+                   then the B16 forward is timed again.  Last of the timed
+                   phases: train steps timed after the profiler had run
+                   read up to 30 % slower (PERF.md, Findings).  The kernel
+                   phases come after the end-to-end ones so that their
+                   inputs, which phase 9 reuses, do not count in the serve
+                   and train windows' peak memory.
+10. report      -- one line per kernel, a ``{"kernels": [...]}`` JSON line, the
                    card's name and power limit, and the final
                    ``{"ok": true, "device": {...}}`` line.
 
@@ -47,6 +61,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import json
 import os
 import subprocess
@@ -76,6 +91,7 @@ from pointcloud_segmentation_attention_tpu_torch.eval.full_scene import (  # noq
 from pointcloud_segmentation_attention_tpu_torch.models import sem_seg  # noqa: E402
 from pointcloud_segmentation_attention_tpu_torch.ops import cuda as kernels  # noqa: E402
 from pointcloud_segmentation_attention_tpu_torch.ops import geometry as plain  # noqa: E402
+from pointcloud_segmentation_attention_tpu_torch.ops.cuda import fps as fps_kernel  # noqa: E402
 from pointcloud_segmentation_attention_tpu_torch.ops.cuda import (  # noqa: E402
     group_gather as gather_kernels,
 )
@@ -88,6 +104,9 @@ from pointcloud_segmentation_attention_tpu_torch.train import (  # noqa: E402
     seg_train_step,
 )
 from pointcloud_segmentation_attention_tpu_torch.nn import PointConv  # noqa: E402
+from pointcloud_segmentation_attention_tpu_torch.utils.trace_breakdown import (  # noqa: E402
+    device_breakdown,
+)
 
 # Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -138,6 +157,25 @@ def time_ms(fn, reps: int, warmup: int = 2, burst: int = 5) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, calls: int = 10, warmup: int = 2) -> float:
+    """Device-only time of one call of ``fn`` in ms: the durations of the
+    kernels, copies and sets that ``torch.profiler`` records over ``calls``
+    back-to-back calls, summed and divided by ``calls``.  Host launch cost
+    and the gaps between kernels are not in it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    busy = device_breakdown(prof, 1.0)["device_busy_ms"]
+    if busy <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return busy / calls
+
+
 def bound(nbytes: float, flops: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -170,7 +208,7 @@ def phase_kernels(dev, batch: int, n: int, reps: int):
     the per-kernel report (errors, times, bounds) and each level's geometry
     for the backward kernels."""
     rng = np.random.RandomState(0)
-    rep = {k: {"max_abs_err": 0.0, "levels": {}} for k in FORWARD_KERNELS}
+    rep = {k: {"max_abs_err": 0.0, "levels": {}, "device_fns": {}} for k in FORWARD_KERNELS}
     geom = {"sa": [], "fp": []}
 
     def err(name, e):
@@ -178,6 +216,7 @@ def phase_kernels(dev, batch: int, n: int, reps: int):
 
     def level_time(name, label, fn):
         rep[name]["levels"][label] = time_ms(fn, reps)
+        rep[name]["device_fns"][label] = fn
 
     xyz = torch.from_numpy((rng.rand(batch, n, 3) * EXTENT).astype(np.float32)).to(dev)
     feats = torch.from_numpy(rng.rand(batch, n, SA_FEATURES[0]).astype(np.float32)).to(dev)
@@ -197,9 +236,11 @@ def phase_kernels(dev, batch: int, n: int, reps: int):
                                         ops.group_point_with_counts(pts, idx, cnt),
                                         plain.group_point(pts, idx)))
         torch.cuda.synchronize()
-        level_time("fps", label, lambda: ops.farthest_point_sample(xyz, npoint))
-        level_time("ball_query", label, lambda: ops.ball_query(xyz, new_xyz, radius, ns))
-        level_time("group_gather", label, lambda: ops.group_point_with_counts(pts, idx, cnt))
+        level_time("fps", label, functools.partial(ops.farthest_point_sample, xyz, npoint))
+        level_time("ball_query", label,
+                   functools.partial(ops.ball_query, xyz, new_xyz, radius, ns))
+        level_time("group_gather", label,
+                   functools.partial(ops.group_point_with_counts, pts, idx, cnt))
         if i == 0:
             sa1 = dict(xyz=xyz, new_xyz=new_xyz, idx=idx, cnt=cnt, pts=pts, npoint=npoint,
                        radius=radius, ns=ns)
@@ -224,8 +265,8 @@ def phase_kernels(dev, batch: int, n: int, reps: int):
             f"three_interpolate {label}", ops.three_interpolate(p2, nidx, w),
             plain.three_interpolate(p2, pnidx, w), FLOAT_TOL))
         torch.cuda.synchronize()
-        level_time("three_nn", label, lambda: ops.three_nn(xyz1, xyz2))
-        level_time("three_interpolate", label, lambda: ops.three_interpolate(p2, nidx, w))
+        level_time("three_nn", label, functools.partial(ops.three_nn, xyz1, xyz2))
+        level_time("three_interpolate", label, functools.partial(ops.three_interpolate, p2, nidx, w))
         if i == 3:
             fp4 = dict(xyz1=xyz1, xyz2=xyz2, idx=nidx, w=w, p2=p2)
         geom["fp"].append((label, nidx, w, p2))
@@ -234,7 +275,8 @@ def phase_kernels(dev, batch: int, n: int, reps: int):
 
     # Large clouds: FPS beyond shared memory, ball query over 2^15+ points.
     big = torch.from_numpy(rng.rand(2, (1 << 15) + 256, 3).astype(np.float32)).to(dev)
-    err("fps", check_equal("fps large N", ops.farthest_point_sample(big, 64),
+    err("fps", check_equal("fps large N",
+                           ops.farthest_point_sample(big, 64),
                            plain.farthest_point_sample(big, 64)))
     dense = (big * 0.2).contiguous()
     centres = dense[:, :64].contiguous()
@@ -244,6 +286,11 @@ def phase_kernels(dev, batch: int, n: int, reps: int):
     err("ball_query", check_equal("ball_query large N cnt", bc, pbc))
     torch.cuda.synchronize()
     log(f"[kernels] large N={big.shape[1]}: fps and ball_query equal")
+    fps_cases = check_fps_edges(dev, rng)
+    log(f"[kernels] fps equal at {len(fps_cases)} edge shapes covering every plan variant: "
+        + "; ".join(fps_cases))
+    gather_cases = check_gather_edges(dev, rng)
+    log(f"[kernels] group_gather equal on random idx at (nsample, C) = {gather_cases}")
 
     # Headline shapes: SA1 for the SA kernels, FP4 for the FP kernels.
     b = batch
@@ -251,18 +298,19 @@ def phase_kernels(dev, batch: int, n: int, reps: int):
     npt, r, ns = sa1["npoint"], sa1["radius"], sa1["ns"]
     m, c = npt, pts.shape[-1]
     rep["fps"].update(
-        ms=rep["fps"]["levels"]["SA1"],
+        ms=rep["fps"]["levels"]["SA1"], headline="SA1",
         plain_ms=time_ms(lambda: plain.farthest_point_sample(x, npt), max(2, reps // 4), 1, 1),
-        library_ms=None, shape=f"B{b} N{n} -> {npt}")
+        library_ms=None, library_fn=None, shape=f"B{b} N{n} -> {npt}",
+        plan=fps_kernel.plan(b, n)._asdict())
     rep["fps"]["bound_ms"], rep["fps"]["bound_by"] = bound(
         b * n * 12 + b * npt * 4, 9.0 * b * (npt - 1) * n)
     # Ball query visits points up to its nsample-th hit (or all of them).
     full = cnt == ns
     visited = torch.where(full, idx[..., -1].long() + 1, torch.full_like(cnt, n).long())
     rep["ball_query"].update(
-        ms=rep["ball_query"]["levels"]["SA1"],
+        ms=rep["ball_query"]["levels"]["SA1"], headline="SA1",
         plain_ms=time_ms(lambda: plain.ball_query(x, nx, r, ns), max(2, reps // 4), 1, 1),
-        library_ms=None, shape=f"B{b} N{n} M{m} ns{ns}")
+        library_ms=None, library_fn=None, shape=f"B{b} N{n} M{m} ns{ns}")
     rep["ball_query"]["bound_ms"], rep["ball_query"]["bound_by"] = bound(
         b * n * 12 + b * m * 12 + b * m * ns * 4 + b * m * 4,
         8.0 * float(visited.sum()))
@@ -271,8 +319,10 @@ def phase_kernels(dev, batch: int, n: int, reps: int):
     check_equal("group_gather library", pts[bidx, lidx], plain.group_point(pts, idx))
     rep["group_gather"].update(
         ms=rep["group_gather"]["levels"]["SA1"],
+        headline="SA1",
         plain_ms=time_ms(lambda: plain.group_point(pts, idx), reps),
         library_ms=time_ms(lambda: pts[bidx, lidx], reps),
+        library_fn=lambda: pts[bidx, lidx],
         library_call="points[b_idx, idx]", shape=f"B{b} N{n} M{m} ns{ns} C{c}")
     rep["group_gather"]["bound_ms"], rep["group_gather"]["bound_by"] = bound(
         b * n * c * 4 + b * m * ns * 4 + b * m * ns * c * 4, 0.0)
@@ -280,9 +330,9 @@ def phase_kernels(dev, batch: int, n: int, reps: int):
     x1, x2, nidx, w, p2 = fp4["xyz1"], fp4["xyz2"], fp4["idx"], fp4["w"], fp4["p2"]
     fn_, fm, fc = x1.shape[1], x2.shape[1], p2.shape[-1]
     rep["three_nn"].update(
-        ms=rep["three_nn"]["levels"]["FP4"],
+        ms=rep["three_nn"]["levels"]["FP4"], headline="FP4",
         plain_ms=time_ms(lambda: plain.three_nn(x1, x2), max(2, reps // 4), 1, 1),
-        library_ms=None, shape=f"B{b} N{fn_} M{fm}")
+        library_ms=None, library_fn=None, shape=f"B{b} N{fn_} M{fm}")
     rep["three_nn"]["bound_ms"], rep["three_nn"]["bound_by"] = bound(
         b * fn_ * 12 + b * fm * 12 + b * fn_ * 3 * 8, 8.0 * b * fn_ * fm)
     gidx = (nidx.long() + torch.arange(b, device=dev)[:, None, None] * fm).reshape(-1, 3)
@@ -295,8 +345,9 @@ def phase_kernels(dev, batch: int, n: int, reps: int):
                 plain.three_interpolate(p2, nidx, w), dict(rtol=1e-5, atol=1e-5))
     rep["three_interpolate"].update(
         ms=rep["three_interpolate"]["levels"]["FP4"],
+        headline="FP4",
         plain_ms=time_ms(lambda: plain.three_interpolate(p2, nidx, w), reps),
-        library_ms=time_ms(embedding_bag, reps),
+        library_ms=time_ms(embedding_bag, reps), library_fn=embedding_bag,
         library_call="embedding_bag(mode='sum', per_sample_weights)",
         shape=f"B{b} N{fn_} M{fm} C{fc}")
     rep["three_interpolate"]["bound_ms"], rep["three_interpolate"]["bound_by"] = bound(
@@ -306,11 +357,74 @@ def phase_kernels(dev, batch: int, n: int, reps: int):
     return rep, geom
 
 
+def check_fps_edges(dev, rng: np.random.RandomState) -> list:
+    """FPS bit-identical to its plain version at edge shapes that together
+    run every variant of ``fps.plan``; returns the cases' labels."""
+    def cloud(b, n):
+        return torch.from_numpy((rng.rand(b, n, 3) * EXTENT).astype(np.float32)).to(dev)
+
+    def duplicated(b, n, distinct):
+        # Each of ``distinct`` points repeated at shuffled indices: every
+        # pick is a tie between copies, and once all are picked, between all.
+        base = rng.rand(b, distinct, 3) * EXTENT
+        order = np.stack([rng.permutation(np.arange(n) % distinct) for _ in range(b)])
+        return torch.from_numpy(np.take_along_axis(base, order[..., None], 1)
+                                .astype(np.float32)).to(dev)
+
+    cases = [
+        ("B1", cloud(1, 8192), 1024),
+        ("B17", cloud(17, 8192), 1024),  # 136 blocks: more than one per SM somewhere
+        ("npoint 1, N 8192", cloud(4, 8192), 1),
+        ("npoint 1, N 1024", cloud(4, 1024), 1),
+        ("npoint N, N 4096", cloud(2, 4096), 4096),
+        ("npoint N, N 100", cloud(3, 100), 100),
+        ("N 8193", cloud(3, 8193), 512),
+        ("N 5000", cloud(2, 5000), 700),
+        ("N 1000", cloud(3, 1000), 300),
+        ("N 1, npoint 4", cloud(2, 1), 4),
+        ("duplicates, N 8192 of 300", duplicated(2, 8192, 300), 1024),
+        ("duplicates, N 1024 of 50", duplicated(3, 1024, 50), 256),
+        ("N 70,000", cloud(2, 70_000), 64),
+        ("N 120,000", cloud(2, 120_000), 64),
+    ]
+    labels, seen = [], set()
+    for label, xyz, npoint in cases:
+        b, n, _ = xyz.shape
+        p = fps_kernel.plan(b, n)
+        seen.add((p.variant, p.cluster, p.per_thread))
+        label = (f"{label} ({p.variant}, cluster {p.cluster}, {p.threads} threads x "
+                 f"{p.per_thread} points)")
+        check_equal(f"fps {label}", ops.farthest_point_sample(xyz, npoint),
+                    plain.farthest_point_sample(xyz, npoint))
+        labels.append(label)
+    torch.cuda.synchronize()
+    want = {(("block" if c == 1 else "cluster"), c, k) for c, (k, _) in fps_kernel.REGISTERS.items()}
+    want |= {("cluster-smem", fps_kernel.CLUSTER, 0), ("cluster-global", fps_kernel.CLUSTER, 0)}
+    if want != seen:
+        raise AssertionError(f"fps edge shapes missed plan variants {want - seen}")
+    return labels
+
+
+def check_gather_edges(dev, rng: np.random.RandomState) -> list:
+    """The gather bit-identical to its plain version on random idx (no
+    ball-query padding) at SA1-4's channel counts, at runs of nsample x C
+    floats that are not a multiple of 4, with C < 4, and nsample > 32."""
+    cases = [(32, 9), (32, 67), (32, 131), (32, 259), (13, 7), (40, 5), (1, 1), (3, 2),
+             (33, 3), (64, 131)]
+    for ns, c in cases:
+        pts = torch.from_numpy(rng.randn(2, 1000, c).astype(np.float32)).to(dev)
+        idx = torch.from_numpy(rng.randint(0, 1000, (2, 101, ns)).astype(np.int32)).to(dev)
+        check_equal(f"group_gather random idx ns{ns} C{c}",
+                    ops.group_point_with_counts(pts, idx), plain.group_point(pts, idx))
+    torch.cuda.synchronize()
+    return cases
+
+
 def phase_kernels_bwd(dev, geom: dict, reps: int) -> dict:
     """The two backward kernels against their plain versions (rtol = atol =
     1e-5) at SA2-4 / FP1-4 and a large N; times at SA2 and FP4."""
     rng = torch.Generator(device=dev).manual_seed(7)
-    rep = {k: {"max_abs_err": 0.0, "levels": {}} for k in BACKWARD_KERNELS}
+    rep = {k: {"max_abs_err": 0.0, "levels": {}, "device_fns": {}} for k in BACKWARD_KERNELS}
 
     def err(name, e):
         rep[name]["max_abs_err"] = max(rep[name]["max_abs_err"], e)
@@ -322,8 +436,9 @@ def phase_kernels_bwd(dev, geom: dict, reps: int) -> dict:
             f"group_gather_bwd {label}", gather_kernels.group_point_backward(g, idx, n),
             plain.group_point_backward(g, idx, n), BWD_TOL))
         if timed:
-            rep["group_gather_bwd"]["levels"][label] = time_ms(
-                lambda: gather_kernels.group_point_backward(g, idx, n), reps)
+            fn = lambda: gather_kernels.group_point_backward(g, idx, n)  # noqa: E731
+            rep["group_gather_bwd"]["levels"][label] = time_ms(fn, reps)
+            rep["group_gather_bwd"]["device_fns"][label] = fn
         return g
 
     def interp_case(label, idx, w, p2, timed):
@@ -340,8 +455,9 @@ def phase_kernels_bwd(dev, geom: dict, reps: int) -> dict:
         err("three_interpolate_bwd", check_close(f"three_interpolate_bwd dP only {label}",
                                                  no_dw[0], pdp, BWD_TOL))
         if timed:
-            rep["three_interpolate_bwd"]["levels"][label] = time_ms(
-                lambda: interp_kernels.three_interpolate_backward(g, idx, w, p2), reps)
+            fn = lambda: interp_kernels.three_interpolate_backward(g, idx, w, p2)  # noqa: E731
+            rep["three_interpolate_bwd"]["levels"][label] = time_ms(fn, reps)
+            rep["three_interpolate_bwd"]["device_fns"][label] = fn
         return g
 
     heads = {}
@@ -383,8 +499,10 @@ def phase_kernels_bwd(dev, geom: dict, reps: int) -> dict:
                 plain.group_point_backward(g, idx, n), BWD_TOL)
     rep["group_gather_bwd"].update(
         ms=rep["group_gather_bwd"]["levels"]["SA2"],
+        headline="SA2",
         plain_ms=time_ms(lambda: plain.group_point_backward(g, idx, n), reps),
-        library_ms=time_ms(index_add, reps), library_call="zeros().index_add_(rows)",
+        library_ms=time_ms(index_add, reps), library_fn=index_add,
+        library_call="zeros().index_add_(rows)",
         shape=f"B{b} N{n} M{m} ns{k} C{c}")
     rep["group_gather_bwd"]["bound_ms"], rep["group_gather_bwd"]["bound_by"] = bound(
         b * m * k * c * 4 + b * m * k * 4 + b * n * c * 4, float(b * m * k * c))
@@ -408,16 +526,31 @@ def phase_kernels_bwd(dev, geom: dict, reps: int) -> dict:
     check_close("three_interpolate_bwd library dw", ldw.reshape(b, fn_, 3), pdw, BWD_TOL)
     rep["three_interpolate_bwd"].update(
         ms=rep["three_interpolate_bwd"]["levels"]["FP4"],
+        headline="FP4",
         plain_ms=time_ms(lambda: plain.three_interpolate_backward(g, idx, w, p2), reps),
         library_ms=time_ms(embedding_bag_backward, reps),
+        library_fn=embedding_bag_backward,
         library_call="embedding_bag(mode='sum', per_sample_weights) backward",
         shape=f"B{b} N{fn_} M{fm} C{fc} (dP and dw)")
     rep["three_interpolate_bwd"]["bound_ms"], rep["three_interpolate_bwd"]["bound_by"] = bound(
         b * fn_ * fc * 4 + b * fn_ * 3 * 8 + 2 * b * fm * fc * 4 + b * fn_ * 3 * 4,
         12.0 * b * fn_ * fc)
-    del out
     torch.cuda.synchronize()
     return rep
+
+
+def phase_device_times(rep: dict) -> None:
+    """Device-only time of every kernel at every timed level, and of each
+    library call, from the profiler (``device_ms``).  Run after the timed
+    phases: a process that has run the profiler may launch more slowly
+    afterwards (PERF.md, Findings), and no wall time may carry that."""
+    for r in rep.values():
+        r["level_device"] = {label: device_ms(fn) for label, fn in r.pop("device_fns").items()}
+        r["device_ms"] = r["level_device"][r.pop("headline")]
+        lib = r.pop("library_fn")
+        r["library_device_ms"] = None if lib is None else device_ms(lib)
+    torch.cuda.synchronize()
+    log("[device-times] device-only times of all kernels and library calls from the profiler")
 
 
 def _capture_levels(model):
@@ -521,14 +654,14 @@ def phase_serve(model, dev, scene_points: int, n_scenes: int, npoints: int,
     return res
 
 
-def phase_forward_time(model, dev, batch: int, n: int, reps: int) -> float:
+def phase_forward_time(model, dev, batch: int, n: int, reps: int, tag: str = "forward") -> float:
     rng = np.random.RandomState(2)
     pts = torch.from_numpy((rng.rand(batch, n, 3) * EXTENT).astype(np.float32)).to(dev)
     feats = torch.from_numpy(rng.rand(batch, n, 6).astype(np.float32)).to(dev)
     from pointcloud_segmentation_attention_tpu_torch.train import seg_predict_step
 
     ms = time_ms(lambda: seg_predict_step(model, pts, feats), reps)
-    log(f"[forward] B{batch} x {n} eval forward: {ms:.3f} ms median of {reps}")
+    log(f"[{tag}] B{batch} x {n} eval forward: {ms:.3f} ms median of {reps}")
     return ms
 
 
@@ -745,15 +878,19 @@ def main() -> int:
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     phase_build()
-    rep, geom = phase_kernels(dev, batch=16, n=8192, reps=20)
-    rep.update(phase_kernels_bwd(dev, geom, reps=20))
-    del geom
     model = phase_model(dev, n=8192)
     serve = phase_serve(model, dev, scene_points=150_000, n_scenes=3, npoints=8192, batch=16)
     fwd_ms = phase_forward_time(model, dev, batch=16, n=8192, reps=10)
     rooms = [make_synthetic_scene(150_000, seed=200 + s) for s in range(4)]
     parity = phase_train_parity(dev, rooms, n=8192)
     train = phase_train(dev, rooms, batch=16, npoints=8192, steps=20, warmup=3)
+    del rooms
+    rep, geom = phase_kernels(dev, batch=16, n=8192, reps=20)
+    rep.update(phase_kernels_bwd(dev, geom, reps=20))
+    del geom
+    phase_device_times(rep)
+    fwd_after_ms = phase_forward_time(model, dev, batch=16, n=8192, reps=10,
+                                      tag="forward after the profiler")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -762,25 +899,29 @@ def main() -> int:
     for name, (src, pallas) in KERNEL_INFO.items():
         r = rep[name]
         launches = (serve if name in FORWARD_KERNELS else train)["launches"][name]
-        levels = " ".join(f"{k}={v:.4f}" for k, v in r["levels"].items())
+        levels = " ".join(f"{k}={v:.4f}/{r['level_device'][k]:.4f}"
+                          for k, v in r["levels"].items())
+        lib = ("-" if r["library_ms"] is None else
+               f"{r['library_ms']:.4f} ms, device {r['library_device_ms']:.4f}")
         log(f"[report] {name:21s} launches={launches:4d} {r['shape']}: "
-            f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
-            f"{'-' if r['library_ms'] is None else format(r['library_ms'], '.4f')} ms, "
-            f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}); per level ms: {levels}; "
-            f"max_abs_err {r['max_abs_err']}")
+            f"{r['ms']:.4f} ms, device {r['device_ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
+            f"library {lib} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}); per level "
+            f"ms wall/device: {levels}; max_abs_err {r['max_abs_err']}")
         line.append({
             "name": name, "route": "cuda", "source": CSRC + src,
             "replaces": PALLAS + pallas, "launches": launches,
             "launch_window": "serve" if name in FORWARD_KERNELS else "train",
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "parity": "pass", "shape": r["shape"],
-            "level_ms": r["levels"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "library_device_ms": r["library_device_ms"],
+            "parity": "pass", "shape": r["shape"], "level_ms": r["levels"],
+            "level_device_ms": r["level_device"],
         })
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "kernels": line, "serve": serve, "forward_b16_ms": fwd_ms,
+                   "forward_b16_ms_after_profiler": fwd_after_ms,
                    "train_parity": parity, "train": train,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -25,7 +25,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -40,9 +40,9 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # name: argtypes (pointers, ints, the stream last)
-    "psa_fps": (_P, _P, _P, _I, _I, _I, _P),
+    "psa_fps": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "psa_ball_query": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P),
-    "psa_group_gather": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "psa_group_gather": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "psa_group_gather_bwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "psa_three_nn": (_P, _P, _P, _P, _I, _I, _I, _P),
     "psa_three_interpolate": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -51,6 +51,9 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+# The C entry points by name, resolved once by ``build()``; ``launch()``
+# reads them without the lock.
+_fns: Dict[str, Callable[..., int]] = {}
 build_log = ""
 
 
@@ -117,6 +120,7 @@ def build(verbose: bool = False) -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+            _fns[name] = fn
         _lib = lib
         return lib
 
@@ -144,15 +148,25 @@ def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
 
 
 def launch(fn_name: str, device: torch.device, *args) -> None:
-    """Call one C entry point on ``device``'s current stream; raise on error."""
-    lib = build()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = getattr(lib, fn_name)(*args, stream)
+    """Call one C entry point on ``device``'s current stream; raise on error.
+
+    The hot path after the first ``build()``: one dict lookup, the raw
+    stream handle (no ``torch.cuda.Stream`` object is built), and a device
+    switch only when ``device`` is not the current one."""
+    fn = _fns.get(fn_name)
+    if fn is None:
+        build()
+        fn = _fns[fn_name]
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == current:
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, stream)
     if err != 0:
-        raise RuntimeError(
-            f"{fn_name}: CUDA launch failed with error {err} "
-            f"({torch.cuda.get_device_name(device)})")
+        raise RuntimeError(f"{fn_name}: CUDA launch failed with error {err} on {device}")
 
 
 def kernels() -> Dict[str, object]:

@@ -26,7 +26,7 @@ def group_point(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     launch("psa_group_gather", points.device, points.data_ptr(), idx.data_ptr(),
-           out.data_ptr(), b, n, c, m * k)
+           out.data_ptr(), b, n, c, m, k)
     group_point.launches += 1
     return out
 

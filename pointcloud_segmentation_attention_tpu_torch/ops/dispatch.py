@@ -48,12 +48,15 @@ def group_point_with_counts(points: torch.Tensor, idx: torch.Tensor,
                             cnt: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``group_point``; ``cnt`` is accepted for the JAX package's signature.
     The CUDA gather copies every slot, which given ball-query output equals
-    the count-aware TPU gather."""
+    the count-aware TPU gather.  Where no gradient can flow to ``points``
+    the kernel is called without the autograd function around it."""
     del cnt
     if _on_cuda(points):
         from pointcloud_segmentation_attention_tpu_torch.ops.cuda import group_gather
 
-        return group_gather.GroupPoint.apply(points, idx)
+        if points.requires_grad and torch.is_grad_enabled():
+            return group_gather.GroupPoint.apply(points, idx)
+        return group_gather.group_point(points, idx)
     return geometry.group_point(points, idx)
 
 

@@ -50,7 +50,7 @@ from pointcloud_segmentation_attention_tpu_torch.train import (
     seg_train_step,
 )
 
-OWN_KERNELS = ("fps_kernel", "ball_query_kernel", "group_gather_kernel",
+OWN_KERNELS = ("fps_regs_kernel", "fps_mem_kernel", "ball_query_kernel", "group_gather_kernel",
                "group_gather_bwd_kernel", "three_nn_kernel", "three_interpolate_kernel",
                "three_interpolate_dp_kernel", "three_interpolate_dw_kernel")
 EXTENT = np.array([1.9, 1.9, 2.6], np.float32)
