@@ -30,11 +30,16 @@ Phases (each raises on failure; the script then exits non-zero):
                    steps on one batch bring its loss below the first.
 7. kernels      -- every forward kernel against its plain PyTorch version on
                    the card at the B16 shapes (SA1-4, FP1-4) and at a large N;
-                   index outputs equal, floats within rtol=atol=1e-6.  FPS
-                   also at edge shapes that run every variant of
-                   ``ops/cuda/fps.py:plan`` (B1, B17, npoint 1 and N, ragged
-                   N, duplicate points, shared- and device-memory clouds);
-                   the gather also on random idx at odd (nsample, C).  Times
+                   index outputs and three-NN distances equal, interpolated
+                   floats within rtol=atol=1e-6.  FPS, ball query and
+                   three-NN also at edge shapes that together run every
+                   variant of their plans (``ops/cuda/{fps,ball_query,
+                   three_nn}.py:plan``): B1, B17, ragged N and M, empty and
+                   full balls, a point on the sphere, nsample 1 to 64 and
+                   above N, M < 3, duplicate and all-equal points, clouds
+                   beyond one tile and beyond 48 KB; the gather also on
+                   random idx at odd (nsample, C).  Ball query's and
+                   three-NN's bounds at every level.  Times
                    each kernel, its plain version and, where one exists, the
                    single PyTorch call computing the same function: wall
                    time of bursts of calls (``time_ms``, which includes the
@@ -44,8 +49,9 @@ Phases (each raises on failure; the script then exits non-zero):
                    against their plain versions within rtol=atol=1e-5 (f32
                    atomics: not bit-reproducible); timed like phase 7.
 9. device-times -- device-only time of every timed kernel level and library
-                   call from the profiler's kernel events (``device_ms``);
-                   then the B16 forward is timed again.  Last of the timed
+                   call, and of the B16 forward, from the profiler's kernel
+                   events (``device_ms``); then the B16 forward is timed
+                   again.  Last of the timed
                    phases: train steps timed after the profiler had run
                    read up to 30 % slower (PERF.md, Findings).  The kernel
                    phases come after the end-to-end ones so that their
@@ -91,7 +97,11 @@ from pointcloud_segmentation_attention_tpu_torch.eval.full_scene import (  # noq
 from pointcloud_segmentation_attention_tpu_torch.models import sem_seg  # noqa: E402
 from pointcloud_segmentation_attention_tpu_torch.ops import cuda as kernels  # noqa: E402
 from pointcloud_segmentation_attention_tpu_torch.ops import geometry as plain  # noqa: E402
-from pointcloud_segmentation_attention_tpu_torch.ops.cuda import fps as fps_kernel  # noqa: E402
+from pointcloud_segmentation_attention_tpu_torch.ops.cuda import (  # noqa: E402
+    ball_query as bq_kernel,
+    fps as fps_kernel,
+    three_nn as nn_kernel,
+)
 from pointcloud_segmentation_attention_tpu_torch.ops.cuda import (  # noqa: E402
     group_gather as gather_kernels,
 )
@@ -218,6 +228,9 @@ def phase_kernels(dev, batch: int, n: int, reps: int):
         rep[name]["levels"][label] = time_ms(fn, reps)
         rep[name]["device_fns"][label] = fn
 
+    def level_bound(name, label, nbytes, flops):
+        rep[name].setdefault("level_bound", {})[label] = bound(nbytes, flops)
+
     xyz = torch.from_numpy((rng.rand(batch, n, 3) * EXTENT).astype(np.float32)).to(dev)
     feats = torch.from_numpy(rng.rand(batch, n, SA_FEATURES[0]).astype(np.float32)).to(dev)
     levels = [xyz]
@@ -241,6 +254,7 @@ def phase_kernels(dev, batch: int, n: int, reps: int):
                    functools.partial(ops.ball_query, xyz, new_xyz, radius, ns))
         level_time("group_gather", label,
                    functools.partial(ops.group_point_with_counts, pts, idx, cnt))
+        level_bound("ball_query", label, *ball_query_work(xyz, new_xyz, idx, cnt, ns))
         if i == 0:
             sa1 = dict(xyz=xyz, new_xyz=new_xyz, idx=idx, cnt=cnt, pts=pts, npoint=npoint,
                        radius=radius, ns=ns)
@@ -258,7 +272,7 @@ def phase_kernels(dev, batch: int, n: int, reps: int):
         dist, nidx = ops.three_nn(xyz1, xyz2)
         pdist, pnidx = plain.three_nn(xyz1, xyz2)
         err("three_nn", check_equal(f"three_nn idx {label}", nidx, pnidx))
-        err("three_nn", check_close(f"three_nn dist {label}", dist, pdist, FLOAT_TOL))
+        err("three_nn", check_equal(f"three_nn dist {label}", dist, pdist))
         w = plain.interpolation_weights(pdist)
         p2 = torch.randn(batch, xyz2.shape[1], FP_CHANNELS[i], device=dev)
         err("three_interpolate", check_close(
@@ -266,12 +280,13 @@ def phase_kernels(dev, batch: int, n: int, reps: int):
             plain.three_interpolate(p2, pnidx, w), FLOAT_TOL))
         torch.cuda.synchronize()
         level_time("three_nn", label, functools.partial(ops.three_nn, xyz1, xyz2))
+        level_bound("three_nn", label, *three_nn_work(xyz1, xyz2))
         level_time("three_interpolate", label, functools.partial(ops.three_interpolate, p2, nidx, w))
         if i == 3:
             fp4 = dict(xyz1=xyz1, xyz2=xyz2, idx=nidx, w=w, p2=p2)
         geom["fp"].append((label, nidx, w, p2))
         log(f"[kernels] {label}: N={xyz1.shape[1]} M={xyz2.shape[1]} C={FP_CHANNELS[i]} "
-            f"three_nn idx equal, interpolate within {FLOAT_TOL}")
+            f"three_nn idx and dist equal, interpolate within {FLOAT_TOL}")
 
     # Large clouds: FPS beyond shared memory, ball query over 2^15+ points.
     big = torch.from_numpy(rng.rand(2, (1 << 15) + 256, 3).astype(np.float32)).to(dev)
@@ -289,6 +304,12 @@ def phase_kernels(dev, batch: int, n: int, reps: int):
     fps_cases = check_fps_edges(dev, rng)
     log(f"[kernels] fps equal at {len(fps_cases)} edge shapes covering every plan variant: "
         + "; ".join(fps_cases))
+    bq_cases = check_ball_query_edges(dev, rng)
+    log(f"[kernels] ball_query idx and cnt equal at {len(bq_cases)} edge shapes covering every "
+        "plan variant: " + "; ".join(bq_cases))
+    nn_cases = check_three_nn_edges(dev, rng)
+    log(f"[kernels] three_nn idx and dist equal at {len(nn_cases)} edge shapes covering every "
+        "plan variant: " + "; ".join(nn_cases))
     gather_cases = check_gather_edges(dev, rng)
     log(f"[kernels] group_gather equal on random idx at (nsample, C) = {gather_cases}")
 
@@ -304,16 +325,12 @@ def phase_kernels(dev, batch: int, n: int, reps: int):
         plan=fps_kernel.plan(b, n)._asdict())
     rep["fps"]["bound_ms"], rep["fps"]["bound_by"] = bound(
         b * n * 12 + b * npt * 4, 9.0 * b * (npt - 1) * n)
-    # Ball query visits points up to its nsample-th hit (or all of them).
-    full = cnt == ns
-    visited = torch.where(full, idx[..., -1].long() + 1, torch.full_like(cnt, n).long())
     rep["ball_query"].update(
         ms=rep["ball_query"]["levels"]["SA1"], headline="SA1",
         plain_ms=time_ms(lambda: plain.ball_query(x, nx, r, ns), max(2, reps // 4), 1, 1),
         library_ms=None, library_fn=None, shape=f"B{b} N{n} M{m} ns{ns}")
-    rep["ball_query"]["bound_ms"], rep["ball_query"]["bound_by"] = bound(
-        b * n * 12 + b * m * 12 + b * m * ns * 4 + b * m * 4,
-        8.0 * float(visited.sum()))
+    rep["ball_query"]["bound_ms"], rep["ball_query"]["bound_by"] = \
+        rep["ball_query"]["level_bound"]["SA1"]
     bidx = torch.arange(b, device=dev)[:, None, None]
     lidx = idx.long()
     check_equal("group_gather library", pts[bidx, lidx], plain.group_point(pts, idx))
@@ -333,8 +350,7 @@ def phase_kernels(dev, batch: int, n: int, reps: int):
         ms=rep["three_nn"]["levels"]["FP4"], headline="FP4",
         plain_ms=time_ms(lambda: plain.three_nn(x1, x2), max(2, reps // 4), 1, 1),
         library_ms=None, library_fn=None, shape=f"B{b} N{fn_} M{fm}")
-    rep["three_nn"]["bound_ms"], rep["three_nn"]["bound_by"] = bound(
-        b * fn_ * 12 + b * fm * 12 + b * fn_ * 3 * 8, 8.0 * b * fn_ * fm)
+    rep["three_nn"]["bound_ms"], rep["three_nn"]["bound_by"] = rep["three_nn"]["level_bound"]["FP4"]
     gidx = (nidx.long() + torch.arange(b, device=dev)[:, None, None] * fm).reshape(-1, 3)
     table, bw = p2.reshape(-1, fc), w.reshape(-1, 3)
 
@@ -357,6 +373,140 @@ def phase_kernels(dev, batch: int, n: int, reps: int):
     return rep, geom
 
 
+def ball_query_work(xyz, centres, idx, cnt, ns):
+    """(bytes, f32 operations) a ball query needs: the cloud and centres read,
+    idx and cnt written; 8 operations per (centre, point) pair up to each
+    centre's nsample-th hit, or over all N points when the ball is not full."""
+    b, n, _ = xyz.shape
+    m = centres.shape[1]
+    visited = torch.where(cnt == ns, idx[..., -1].long() + 1, torch.full_like(cnt, n).long())
+    return (b * n * 12 + b * m * 12 + b * m * ns * 4 + b * m * 4, 8.0 * float(visited.sum()))
+
+
+def three_nn_work(xyz1, xyz2):
+    """(bytes, f32 operations) of three-NN: both clouds read, dist and idx
+    written; 8 operations per (unknown, known) pair."""
+    b, n, _ = xyz1.shape
+    m = xyz2.shape[1]
+    return b * n * 12 + b * m * 12 + b * n * 3 * 8, 8.0 * b * n * m
+
+
+def _duplicated(rng: np.random.RandomState, b: int, n: int, distinct: int, dev):
+    """B clouds of n points, each of ``distinct`` points repeated at shuffled
+    indices: every distance is tied with its copies'."""
+    base = rng.rand(b, distinct, 3) * EXTENT
+    order = np.stack([rng.permutation(np.arange(n) % distinct) for _ in range(b)])
+    return torch.from_numpy(np.take_along_axis(base, order[..., None], 1)
+                            .astype(np.float32)).to(dev)
+
+
+def check_ball_query_edges(dev, rng: np.random.RandomState) -> list:
+    """Ball query bit-identical (idx and cnt) to its plain version at edge
+    shapes that together run every variant of ``ball_query.plan``; returns
+    the cases' labels."""
+    def cloud(b, n, scale=1.0):
+        return torch.from_numpy((rng.rand(b, n, 3) * EXTENT * scale).astype(np.float32)).to(dev)
+
+    def centres_of(xyz, m):
+        b, n, _ = xyz.shape
+        pick = np.stack([rng.randint(0, n, m) for _ in range(b)])
+        return plain.gather_point(xyz, torch.from_numpy(pick.astype(np.int32)).to(dev))
+
+    # The plain version's threshold test on the sphere: d2 == r2 is no hit.
+    sphere = torch.tensor([[[0.5, 0, 0], [0, 0, 0], [0.25, 0, 0], [0, 0.5, 0], [0.4999, 0, 0],
+                            [0, 0, -0.5], [0.5, 0, 0]]], dtype=torch.float32, device=dev)
+    dense = cloud(16, 8192, 0.2)
+    cases = [
+        # (label, xyz, centres, radius, nsample)
+        ("B1, N 8192", cloud(1, 8192), 1024, 0.1, 32),
+        ("B17, N 8192", cloud(17, 8192), 1024, 0.1, 32),
+        ("N 1, nsample 4 > N", cloud(2, 1), None, 0.5, 4),
+        ("N 31, nsample 13", cloud(3, 31), None, 0.5, 13),
+        ("N 33, nsample 64 > N", cloud(2, 33), None, 1.0, 64),
+        ("N 8193", cloud(3, 8193), 1000, 0.2, 32),
+        ("N 33,024", cloud(2, 33_024), 512, 0.1, 32),
+        ("M 1", cloud(4, 2048), 1, 0.3, 32),
+        ("M 1000 of 16 a block", cloud(6, 1024), 1000, 0.2, 32),
+        ("B5, N 4096, M 1000", cloud(5, 4096), 1000, 0.2, 32),
+        ("B16, N 1024, M 1024", cloud(16, 1024), 1024, 0.2, 32),
+        ("nsample 1", cloud(2, 4096), 300, 0.3, 1),
+        ("nsample 64", cloud(16, 8192), 1024, 0.2, 64),
+        ("empty balls, r 1e-4", cloud(2, 4096), 256, 1e-4, 16),
+        ("full in the first tile (dense, r 2)", dense, dense[:, ::8].contiguous(), 2.0, 32),
+        ("full in the first tile, nsample 64", dense, dense[:, ::8].contiguous(), 2.0, 64),
+        ("point on the sphere", sphere, sphere[:, 1:2].contiguous(), 0.5, 4),
+        ("duplicates, N 8192 of 300", _duplicated(rng, 2, 8192, 300, dev), 512, 0.2, 32),
+    ]
+    labels, seen = [], set()
+    for label, xyz, centres, radius, ns in cases:
+        if not isinstance(centres, torch.Tensor):
+            centres = centres_of(xyz, min(xyz.shape[1], 128) if centres is None else centres)
+        b, n, _ = xyz.shape
+        m = centres.shape[1]
+        p = bq_kernel.plan(b, n, m)
+        seen.add((p.variant, p.per_warp))
+        label = f"{label} (B{b} N{n} M{m} ns{ns}: {p.variant}, R {p.per_warp}, {p.threads} threads)"
+        idx, cnt = ops.ball_query(xyz, centres, radius, ns)
+        pidx, pcnt = plain.ball_query(xyz, centres, radius, ns)
+        check_equal(f"ball_query idx {label}", idx, pidx)
+        check_equal(f"ball_query cnt {label}", cnt, pcnt)
+        labels.append(label)
+    torch.cuda.synchronize()
+    # Hits at d2 < r2 only: indices 1, 2, 4; (0.5, 0, 0) at d2 == r2 is out.
+    idx, cnt = ops.ball_query(sphere, sphere[:, 1:2].contiguous(), 0.5, 4)
+    if cnt.tolist() != [[3]] or idx.tolist() != [[[1, 2, 4, 1]]]:
+        raise AssertionError(f"ball_query on the sphere: cnt {cnt.tolist()} idx {idx.tolist()}")
+    want = {(v, r) for v in ("whole", "ring") for r in bq_kernel.PER_WARP}
+    if want != seen:
+        raise AssertionError(f"ball_query edge shapes missed plan variants {want - seen}")
+    return labels
+
+
+def check_three_nn_edges(dev, rng: np.random.RandomState) -> list:
+    """Three-NN bit-identical (idx and dist) to its plain version at edge
+    shapes that together run every variant of ``three_nn.plan``, the shared
+    memory opt-in above 48 KB included; returns the cases' labels."""
+    def cloud(b, n):
+        return torch.from_numpy((rng.rand(b, n, 3) * EXTENT).astype(np.float32)).to(dev)
+
+    same = torch.full((2, 1024, 3), 0.7, dtype=torch.float32, device=dev)
+    cases = [
+        # (label, unknown, known)
+        ("M 1", cloud(2, 1000), cloud(2, 1)),
+        ("M 2", cloud(3, 500), cloud(3, 2)),
+        ("M 3", cloud(2, 777), cloud(2, 3)),
+        ("M 1000", cloud(4, 5000), cloud(4, 1000)),
+        ("M 6000, whole above 48 KB", cloud(2, 2000), cloud(2, 6000)),
+        ("M 10,000 in the ring", cloud(2, 3000), cloud(2, 10_000)),
+        ("N 8191 of 512 a block", cloud(16, 8191), cloud(16, 1024)),
+        ("all-equal known points", cloud(2, 4096), same),
+        ("duplicates, M 1024 of 50", cloud(2, 4096), _duplicated(rng, 2, 1024, 50, dev)),
+        ("B1", cloud(1, 8192), cloud(1, 1024)),
+        ("B17", cloud(17, 8192), cloud(17, 1024)),
+        ("B16, M 8300 in the ring", cloud(16, 8192), cloud(16, 8300)),
+    ]
+    labels, seen, opt_in = [], set(), False
+    for label, xyz1, xyz2 in cases:
+        b, n, _ = xyz1.shape
+        m = xyz2.shape[1]
+        p = nn_kernel.plan(b, n, m)
+        seen.add((p.variant, p.per_thread))
+        opt_in = opt_in or p.smem_bytes > kernels.DEFAULT_SMEM_BYTES
+        label = (f"{label} (B{b} N{n} M{m}: {p.variant}, Q {p.per_thread}, {p.threads} threads, "
+                 f"{p.smem_bytes} B)")
+        dist, idx = ops.three_nn(xyz1, xyz2)
+        pdist, pidx = plain.three_nn(xyz1, xyz2)
+        check_equal(f"three_nn idx {label}", idx, pidx)
+        check_equal(f"three_nn dist {label}", dist, pdist)
+        labels.append(label)
+    torch.cuda.synchronize()
+    want = {(v, q) for v in ("whole", "ring") for q in nn_kernel.PER_THREAD}
+    if want != seen or not opt_in:
+        raise AssertionError(f"three_nn edge shapes missed plan variants {want - seen} "
+                             f"(a whole cloud above 48 KB: {opt_in})")
+    return labels
+
+
 def check_fps_edges(dev, rng: np.random.RandomState) -> list:
     """FPS bit-identical to its plain version at edge shapes that together
     run every variant of ``fps.plan``; returns the cases' labels."""
@@ -364,12 +514,8 @@ def check_fps_edges(dev, rng: np.random.RandomState) -> list:
         return torch.from_numpy((rng.rand(b, n, 3) * EXTENT).astype(np.float32)).to(dev)
 
     def duplicated(b, n, distinct):
-        # Each of ``distinct`` points repeated at shuffled indices: every
-        # pick is a tie between copies, and once all are picked, between all.
-        base = rng.rand(b, distinct, 3) * EXTENT
-        order = np.stack([rng.permutation(np.arange(n) % distinct) for _ in range(b)])
-        return torch.from_numpy(np.take_along_axis(base, order[..., None], 1)
-                                .astype(np.float32)).to(dev)
+        # Every pick is a tie between copies, and once all are picked, between all.
+        return _duplicated(rng, b, n, distinct, dev)
 
     cases = [
         ("B1", cloud(1, 8192), 1024),
@@ -665,6 +811,18 @@ def phase_forward_time(model, dev, batch: int, n: int, reps: int, tag: str = "fo
     return ms
 
 
+def phase_forward_device(model, dev, batch: int, n: int) -> float:
+    """Device-only time of one B16 x 8192 eval forward (``device_ms``)."""
+    rng = np.random.RandomState(2)
+    pts = torch.from_numpy((rng.rand(batch, n, 3) * EXTENT).astype(np.float32)).to(dev)
+    feats = torch.from_numpy(rng.rand(batch, n, 6).astype(np.float32)).to(dev)
+    from pointcloud_segmentation_attention_tpu_torch.train import seg_predict_step
+
+    ms = device_ms(lambda: seg_predict_step(model, pts, feats), calls=5)
+    log(f"[device-times] B{batch} x {n} eval forward: {ms:.3f} ms of device time")
+    return ms
+
+
 @contextlib.contextmanager
 def plain_ops():
     """Route the model's geometry ops to the plain PyTorch versions, on any
@@ -889,6 +1047,7 @@ def main() -> int:
     rep.update(phase_kernels_bwd(dev, geom, reps=20))
     del geom
     phase_device_times(rep)
+    fwd_device_ms = phase_forward_device(model, dev, batch=16, n=8192)
     fwd_after_ms = phase_forward_time(model, dev, batch=16, n=8192, reps=10,
                                       tag="forward after the profiler")
 
@@ -900,13 +1059,15 @@ def main() -> int:
         r = rep[name]
         launches = (serve if name in FORWARD_KERNELS else train)["launches"][name]
         levels = " ".join(f"{k}={v:.4f}/{r['level_device'][k]:.4f}"
+                          + (f"/bound {r['level_bound'][k][0]:.4f}" if "level_bound" in r else "")
                           for k, v in r["levels"].items())
         lib = ("-" if r["library_ms"] is None else
                f"{r['library_ms']:.4f} ms, device {r['library_device_ms']:.4f}")
         log(f"[report] {name:21s} launches={launches:4d} {r['shape']}: "
             f"{r['ms']:.4f} ms, device {r['device_ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
             f"library {lib} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}); per level "
-            f"ms wall/device: {levels}; max_abs_err {r['max_abs_err']}")
+            f"ms wall/device{'/bound' if 'level_bound' in r else ''}: {levels}; "
+            f"max_abs_err {r['max_abs_err']}")
         line.append({
             "name": name, "route": "cuda", "source": CSRC + src,
             "replaces": PALLAS + pallas, "launches": launches,
@@ -917,11 +1078,14 @@ def main() -> int:
             "parity": "pass", "shape": r["shape"], "level_ms": r["levels"],
             "level_device_ms": r["level_device"],
         })
+        if "level_bound" in r:  # ball query and three-NN: the bound at every level
+            line[-1]["level_bound_ms"] = {k: v[0] for k, v in r["level_bound"].items()}
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "kernels": line, "serve": serve, "forward_b16_ms": fwd_ms,
                    "forward_b16_ms_after_profiler": fwd_after_ms,
+                   "forward_b16_device_ms": fwd_device_ms,
                    "train_parity": parity, "train": train,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -25,7 +25,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -34,6 +34,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("fps.cu", "ball_query.cu", "group_gather.cu", "group_gather_bwd.cu",
            "three_nn.cu", "three_interpolate.cu", "three_interpolate_bwd.cu")
+HEADERS = ("point_tiles.cuh",)  # included by sources; part of the library's hash
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -41,19 +42,36 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # name: argtypes (pointers, ints, the stream last)
     "psa_fps": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "psa_ball_query": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P),
+    # ball query and three-NN take their plan's fields after the shapes
+    "psa_ball_query": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _I, _I, _I, _I, _I,
+                       _P),
     "psa_group_gather": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "psa_group_gather_bwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "psa_three_nn": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "psa_three_nn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "psa_three_nn_allow_smem": (_I, _P),  # the stream is not used
     "psa_three_interpolate": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "psa_three_interpolate_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
+
+DEFAULT_SMEM_BYTES = 48 * 1024   # dynamic shared memory a kernel may take unasked
+MAX_SMEM_BYTES = 232_448         # the most a block may take on an H100 (227 KB)
+RING_HEADER_BYTES = 16           # csrc/point_tiles.cuh: two mbarriers before the tiles
+BYTES_PER_POINT = 12             # xyz, f32
+
+
+def ring_bytes(tile: int, stages: int) -> int:
+    """Dynamic shared memory of a ``csrc/point_tiles.cuh`` ring of ``stages``
+    buffers of ``tile`` points (``point_tiles::ring_bytes``)."""
+    return RING_HEADER_BYTES + stages * tile * BYTES_PER_POINT
+
 
 _lock = threading.Lock()
 _lib = None
 # The C entry points by name, resolved once by ``build()``; ``launch()``
 # reads them without the lock.
 _fns: Dict[str, Callable[..., int]] = {}
+# (entry point, device index) -> the largest dynamic shared memory allowed so far.
+_smem_allowed: Dict[Tuple[str, int], int] = {}
 build_log = ""
 
 
@@ -70,7 +88,7 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as f:
             digest.update(name.encode() + f.read())
     return os.path.join(BUILD_DIR, f"libpsa_kernels_{digest.hexdigest()[:16]}.so")
@@ -167,6 +185,20 @@ def launch(fn_name: str, device: torch.device, *args) -> None:
             err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA launch failed with error {err} on {device}")
+
+
+def allow_smem(fn_name: str, device: torch.device, nbytes: int) -> None:
+    """Let a kernel family take ``nbytes`` of dynamic shared memory on
+    ``device``: above the default 48 KB a kernel needs
+    ``cudaFuncSetAttribute`` first, which ``fn_name`` makes.  Called once per
+    device and larger size; sizes within 48 KB need no call."""
+    if nbytes <= DEFAULT_SMEM_BYTES:
+        return
+    index = torch.cuda.current_device() if device.index is None else device.index
+    if _smem_allowed.get((fn_name, index), 0) >= nbytes:
+        return
+    launch(fn_name, device, nbytes)
+    _smem_allowed[(fn_name, index)] = nbytes
 
 
 def kernels() -> Dict[str, object]:

@@ -1,6 +1,7 @@
-"""The host side of the port's kernels, without a card or nvcc: the FPS
-variant plan (``ops/cuda/fps.py:plan``) and the lean launch path
-(``ops/cuda/__init__.py:launch``) against a stub ctypes library."""
+"""The host side of the port's kernels, without a card or nvcc: the launch
+plans of FPS, ball query and three-NN (``ops/cuda/{fps,ball_query,
+three_nn}.py:plan``), the lean launch path (``ops/cuda/__init__.py:launch``)
+and the wrappers' argument lists against a stub ctypes library."""
 from __future__ import annotations
 
 import contextlib
@@ -11,7 +12,10 @@ import pytest
 import torch
 
 from pointcloud_segmentation_attention_tpu_torch.ops import cuda
+from pointcloud_segmentation_attention_tpu_torch.ops.cuda import ball_query as bq
 from pointcloud_segmentation_attention_tpu_torch.ops.cuda import fps
+from pointcloud_segmentation_attention_tpu_torch.ops.cuda import three_nn as tn
+from pointcloud_segmentation_attention_tpu_torch.ops.geometry import radius_threshold
 
 
 # ---- FPS plan ------------------------------------------------------------
@@ -62,6 +66,81 @@ def test_fps_plan_refuses_empty_shapes():
         fps.plan(0, 8192)
     with pytest.raises(ValueError):
         fps.plan(2, 0)
+
+
+# ---- ball-query and three-NN plans --------------------------------------
+
+@pytest.mark.parametrize("b, n, m, want", [
+    # The main path at B16, SA1-4: 4 centres a warp at SA1, 2 at SA2.
+    (16, 8192, 1024, bq.BallQueryPlan("ring", 4, 256, 1024, 2, 16 + 2 * 1024 * 12, 32)),
+    (16, 1024, 256, bq.BallQueryPlan("whole", 2, 256, 1024, 1, 16 + 1024 * 12, 16)),
+    (16, 256, 64, bq.BallQueryPlan("whole", 1, 256, 256, 1, 16 + 256 * 12, 8)),
+    (16, 64, 16, bq.BallQueryPlan("whole", 1, 256, 64, 1, 16 + 64 * 12, 2)),
+])
+def test_ball_query_plan_at_main_path_shapes(b, n, m, want):
+    assert bq.plan(b, n, m) == want
+
+
+@pytest.mark.parametrize("b, n, m, want", [
+    # The main path at B16, FP1-4 (N unknown, M known): the known cloud whole,
+    # two unknowns a thread at FP4.
+    (16, 64, 16, tn.ThreeNnPlan("whole", 1, 32, 32, 1, 16 + 32 * 12, 2)),
+    (16, 256, 64, tn.ThreeNnPlan("whole", 1, 32, 64, 1, 16 + 64 * 12, 8)),
+    (16, 1024, 256, tn.ThreeNnPlan("whole", 1, 128, 256, 1, 16 + 256 * 12, 8)),
+    (16, 8192, 1024, tn.ThreeNnPlan("whole", 2, 256, 1024, 1, 16 + 1024 * 12, 16)),
+])
+def test_three_nn_plan_at_main_path_shapes(b, n, m, want):
+    assert tn.plan(b, n, m) == want
+
+
+def _check_ring(p, n):
+    """A plan's tile ring holds the cloud of n points within the card's limit."""
+    assert p.tile % 32 == 0 and p.tile >= 32 and p.stages in (1, 2)
+    assert (p.variant == "whole") == (p.stages == 1)
+    if p.stages == 1:
+        assert p.tile >= n and p.tile - 32 < n  # the whole cloud, no idle warp of points
+    assert p.smem_bytes == cuda.ring_bytes(p.tile, p.stages) <= cuda.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 64, 1000, 1024, 1025, 8192, 8193, 33_024])
+@pytest.mark.parametrize("m", [1, 7, 16, 256, 1000, 1024, 4097])
+def test_ball_query_plan_covers_every_centre(n, m):
+    for b in (1, 3, 16, 17):
+        p = bq.plan(b, n, m)
+        warps = p.threads // 32
+        assert p.threads % 32 == 0 and 32 <= p.threads <= 256
+        assert p.per_warp in bq.PER_WARP and p.per_warp <= m
+        assert p.blocks * warps * p.per_warp >= m          # every centre has a warp
+        assert (p.blocks - 1) * warps * p.per_warp < m     # and no block is idle
+        assert (warps - 1) * p.per_warp < m                # nor a warp of a one-block cloud
+        _check_ring(p, n)
+        assert p.tile == min(bq.TILE, -(-n // 32) * 32)
+        assert p.smem_bytes <= cuda.DEFAULT_SMEM_BYTES     # never needs the opt-in
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 100, 1000, 1024, 8191, 8192, 8193, 40_000])
+@pytest.mark.parametrize("m", [1, 2, 3, 16, 1000, 4095, 4096, 4097, 8192, 8193, 20_000])
+def test_three_nn_plan_covers_every_unknown(n, m):
+    for b in (1, 3, 16, 17):
+        p = tn.plan(b, n, m)
+        run = p.threads * p.per_thread  # unknowns a block
+        assert p.threads in tn.THREADS and p.threads % 32 == 0 and p.threads <= 1024
+        assert p.per_thread in tn.PER_THREAD
+        assert p.blocks * run >= n > (p.blocks - 1) * run  # every unknown, no idle block
+        _check_ring(p, m)
+        whole = -(-m // 32) * 32 <= tn.WHOLE_MAX_POINTS
+        assert p.variant == ("whole" if whole else "ring")
+        if not whole:
+            assert p.tile == tn.TILE
+
+
+@pytest.mark.parametrize("plan, args", [
+    (bq.plan, (0, 8192, 1024)), (bq.plan, (2, 0, 1024)), (bq.plan, (2, 8192, 0)),
+    (tn.plan, (0, 8192, 1024)), (tn.plan, (2, 0, 1024)), (tn.plan, (2, 8192, 0)),
+])
+def test_ball_query_and_three_nn_plans_refuse_empty_shapes(plan, args):
+    with pytest.raises(ValueError):
+        plan(*args)
 
 
 # ---- the launch path -----------------------------------------------------
@@ -117,6 +196,7 @@ def stub_library(monkeypatch, tmp_path):
     state = {"rcs": {}}
     monkeypatch.setattr(cuda, "_lib", None)
     monkeypatch.setattr(cuda, "_fns", {})
+    monkeypatch.setattr(cuda, "_smem_allowed", {})
     monkeypatch.setattr(cuda, "library_path", lambda: str(so))
     monkeypatch.setattr(ctypes, "CDLL", lambda path: make(state["rcs"]))
     streams = []
@@ -146,7 +226,7 @@ def test_launch_resolves_each_entry_point_once(stub_library, monkeypatch):
             cuda.launch(name, dev, 1, 2)
         monkeypatch.setattr(cuda, "_lock", _NoLock())  # loaded: no lock from here on
     (lib,) = stub_library.libs
-    assert set(cuda._SIGNATURES) == set(lib.lookups) and len(lib.lookups) == 7
+    assert set(cuda._SIGNATURES) == set(lib.lookups) and len(lib.lookups) == 8
     assert lib.lookups == {name: 1 for name in cuda._SIGNATURES}
     for name, argtypes in cuda._SIGNATURES.items():
         fn = lib._fns[name]
@@ -168,3 +248,61 @@ def test_launch_raises_on_nonzero_return_code(stub_library):
     with pytest.raises(RuntimeError, match="psa_group_gather.*error 700"):
         cuda.launch("psa_group_gather", torch.device("cuda", 0), 1)
     cuda.launch("psa_fps", torch.device("cuda", 0), 1)  # the others still launch
+
+
+@pytest.fixture
+def cpu_wrappers(stub_library, monkeypatch):
+    """Let the ball-query and three-NN wrappers take CPU tensors, so that their
+    argument lists reach the stub library."""
+    def accept(t, name, dtype, ndim, last=None):
+        assert t.dtype == dtype and t.dim() == ndim and t.is_contiguous()
+
+    monkeypatch.setattr(bq, "check_input", accept)
+    monkeypatch.setattr(tn, "check_input", accept)
+    bq.ball_query.launches = tn.three_nn.launches = 0
+    return stub_library
+
+
+@pytest.mark.parametrize("b, n, m", [(16, 8192, 1024), (16, 1024, 256), (3, 33, 7), (2, 8193, 1)])
+@pytest.mark.parametrize("nsample", [1, 13, 32, 64])
+def test_ball_query_wrapper_passes_its_plan(cpu_wrappers, b, n, m, nsample):
+    xyz, new_xyz = torch.zeros(b, n, 3), torch.zeros(b, m, 3)
+    idx, cnt = bq.ball_query(xyz, new_xyz, 0.2, nsample)
+    assert idx.shape == (b, m, nsample) and cnt.shape == (b, m)
+    (lib,) = cpu_wrappers.libs
+    (call,) = lib._fns["psa_ball_query"].calls
+    p = bq.plan(b, n, m)
+    assert call == (xyz.data_ptr(), new_xyz.data_ptr(), idx.data_ptr(), cnt.data_ptr(), b, n, m,
+                    radius_threshold(0.2), nsample, p.per_warp, p.threads, p.tile, p.stages,
+                    p.smem_bytes, p.blocks, 0xBEEF)
+    assert len(call) == len(cuda._SIGNATURES["psa_ball_query"])
+    assert bq.ball_query.launches == 1
+
+
+@pytest.mark.parametrize("m", [1000, 4095, 4096, 4097, 6000, 8192, 8193, 20_000])
+def test_three_nn_wrapper_allows_smem_exactly_above_48k(cpu_wrappers, m):
+    b, n = 2, 300
+    xyz1, xyz2 = torch.zeros(b, n, 3), torch.zeros(b, m, 3)
+    p = tn.plan(b, n, m)
+    outs = [tn.three_nn(xyz1, xyz2) for _ in range(2)]  # the second finds the size allowed
+    (lib,) = cpu_wrappers.libs
+    allowed = lib._fns["psa_three_nn_allow_smem"].calls
+    assert allowed == ([(p.smem_bytes, 0xBEEF)] if p.smem_bytes > cuda.DEFAULT_SMEM_BYTES else [])
+    calls = lib._fns["psa_three_nn"].calls
+    assert calls == [(xyz1.data_ptr(), xyz2.data_ptr(), dist.data_ptr(), idx.data_ptr(), b, n, m,
+                      p.per_thread, p.threads, p.tile, p.stages, p.smem_bytes, p.blocks, 0xBEEF)
+                     for dist, idx in outs]
+    assert len(calls[0]) == len(cuda._SIGNATURES["psa_three_nn"])
+    assert tn.three_nn.launches == 2
+
+
+def test_three_nn_smem_opt_in_is_per_device_and_grows(cpu_wrappers):
+    small, big = tn.plan(1, 10, 6000).smem_bytes, tn.plan(1, 10, 8000).smem_bytes
+    assert cuda.DEFAULT_SMEM_BYTES < small < big
+    cuda.allow_smem("psa_three_nn_allow_smem", torch.device("cuda", 0), big)
+    cuda.allow_smem("psa_three_nn_allow_smem", torch.device("cuda", 0), small)  # covered
+    cuda.allow_smem("psa_three_nn_allow_smem", torch.device("cuda", 1), small)  # other card
+    cuda.allow_smem("psa_three_nn_allow_smem", torch.device("cuda", 0), 1024)   # needs none
+    (lib,) = cpu_wrappers.libs
+    assert lib._fns["psa_three_nn_allow_smem"].calls == [(big, 0xBEEF), (small, 0xBEEF)]
+    assert cpu_wrappers.switches == [1]

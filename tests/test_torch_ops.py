@@ -236,8 +236,63 @@ def test_cuda_kernels_match_plain(cuda_device, rng):
     dist, nn_idx = tops.three_nn(xyz, new_xyz)
     pdist, pnn_idx = tgeo.three_nn(xyz, new_xyz)
     torch.testing.assert_close(nn_idx, pnn_idx, rtol=0, atol=0)
-    torch.testing.assert_close(dist, pdist, **FLOAT_TOL)
+    torch.testing.assert_close(dist, pdist, rtol=0, atol=0)
     w = tgeo.interpolation_weights(dist)
     feats = torch.rand(2, 512, 128, device=cuda_device)
     torch.testing.assert_close(tops.three_interpolate(feats, nn_idx, w),
                                tgeo.three_interpolate(feats, nn_idx, w), **FLOAT_TOL)
+
+
+# Edge shapes of the ball-query and three-NN launch plans
+# (``ops/cuda/{ball_query,three_nn}.py:plan``): every variant, ragged tiles
+# and blocks, empty and full balls, M < 3, ties.  Bit-identical on the card.
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m,radius,nsample,scale", [
+    (1, 8192, 1024, 0.1, 32, 1.0),     # ring, one centre a warp
+    (17, 8192, 1024, 0.1, 32, 1.0),    # ring, four centres a warp
+    (2, 1, 1, 0.5, 4, 1.0),            # N 1, nsample > N
+    (3, 31, 31, 0.5, 13, 1.0),
+    (2, 33, 33, 1.0, 64, 1.0),         # nsample > N and > a warp
+    (3, 8193, 1000, 0.2, 32, 1.0),     # a last tile of one point
+    (6, 1024, 1000, 0.2, 32, 1.0),     # whole, two centres a warp, ragged block
+    (5, 4096, 1000, 0.2, 32, 1.0),     # ring, two centres a warp
+    (16, 1024, 1024, 0.2, 32, 1.0),    # whole, four centres a warp
+    (2, 4096, 256, 1e-4, 16, 1.0),     # empty balls
+    (16, 8192, 1024, 2.0, 64, 0.2),    # every ball full in the first tile
+])
+def test_cuda_ball_query_edge_shapes_match_plain(cuda_device, rng, b, n, m, radius, nsample,
+                                                 scale):
+    xyz = _t((rng.rand(b, n, 3) * EXTENT * scale).astype(np.float32)).to(cuda_device)
+    new_xyz = xyz[:, _t(rng.randint(0, n, m)).to(cuda_device)].contiguous()
+    idx, cnt = tops.ball_query(xyz, new_xyz, radius, nsample)
+    pidx, pcnt = tgeo.ball_query(xyz, new_xyz, radius, nsample)
+    torch.testing.assert_close(idx, pidx, rtol=0, atol=0)
+    torch.testing.assert_close(cnt, pcnt, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_ball_query_point_on_the_sphere_is_no_hit(cuda_device):
+    xyz = torch.tensor([[[0.5, 0, 0], [0, 0, 0], [0.25, 0, 0], [0.4999, 0, 0]]],
+                       device=cuda_device)
+    idx, cnt = tops.ball_query(xyz, xyz[:, 1:2].contiguous(), 0.5, 4)
+    assert cnt.tolist() == [[3]] and idx.tolist() == [[[1, 2, 3, 1]]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m,equal", [
+    (2, 1000, 1, False), (3, 500, 2, False), (2, 777, 3, False),
+    (4, 5000, 1000, False),
+    (2, 2000, 6000, False),     # whole cloud above 48 KB of shared memory
+    (2, 3000, 10_000, False),   # the ring
+    (16, 8191, 1024, False),    # a ragged last block
+    (2, 4096, 1024, True),      # all known points equal: ties by index
+    (1, 8192, 1024, False), (17, 8192, 1024, False),
+])
+def test_cuda_three_nn_edge_shapes_match_plain(cuda_device, rng, b, n, m, equal):
+    xyz1 = _t((rng.rand(b, n, 3) * EXTENT).astype(np.float32)).to(cuda_device)
+    known = np.full((b, m, 3), 0.7) if equal else rng.rand(b, m, 3) * EXTENT
+    xyz2 = _t(known.astype(np.float32)).to(cuda_device)
+    dist, idx = tops.three_nn(xyz1, xyz2)
+    pdist, pidx = tgeo.three_nn(xyz1, xyz2)
+    torch.testing.assert_close(idx, pidx, rtol=0, atol=0)
+    torch.testing.assert_close(dist, pdist, rtol=0, atol=0)
