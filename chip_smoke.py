@@ -30,24 +30,30 @@ Phases (each raises on failure; the script then exits non-zero):
                    steps on one batch bring its loss below the first.
 7. kernels      -- every forward kernel against its plain PyTorch version on
                    the card at the B16 shapes (SA1-4, FP1-4) and at a large N;
-                   index outputs and three-NN distances equal, interpolated
-                   floats within rtol=atol=1e-6.  FPS, ball query and
-                   three-NN also at edge shapes that together run every
-                   variant of their plans (``ops/cuda/{fps,ball_query,
-                   three_nn}.py:plan``): B1, B17, ragged N and M, empty and
+                   all outputs equal bit for bit.  FPS, ball query,
+                   three-NN and the interpolation also at edge shapes that
+                   together run every variant of their plans
+                   (``ops/cuda/{fps,ball_query,three_nn,
+                   three_interpolate}.py``): B1, B17, ragged N and M, empty and
                    full balls, a point on the sphere, nsample 1 to 64 and
                    above N, M < 3, duplicate and all-equal points, clouds
-                   beyond one tile and beyond 48 KB; the gather also on
-                   random idx at odd (nsample, C).  Ball query's and
-                   three-NN's bounds at every level.  Times
+                   beyond one tile and beyond 48 KB, C 1 to 512, misaligned
+                   rows, M 33,024 (the interpolation's backward is held there
+                   as in phase 8); the gather also on random idx at odd
+                   (nsample, C).  Ball query's, three-NN's and the
+                   interpolation's bounds at every level.  Times
                    each kernel, its plain version and, where one exists, the
                    single PyTorch call computing the same function: wall
                    time of bursts of calls (``time_ms``, which includes the
                    host launch cost).
-8. kernels-bwd  -- the two backward kernels (gather scatter-add at SA2-4,
-                   interpolation dP and dw at FP1-4, both also at a large N)
-                   against their plain versions within rtol=atol=1e-5 (f32
-                   atomics: not bit-reproducible); timed like phase 7.
+8. kernels-bwd  -- the two backward kernels at SA2-4 / FP1-4 and a large N.
+                   The gather scatter-add within rtol=atol=1e-5 of its plain
+                   version (f32 atomics: not bit-reproducible).  The
+                   interpolation backward's dP equal to the plain version run
+                   on CPU copies and from call to call, dw within 1e-5 and
+                   equal from call to call, its CSR equal to
+                   ``plain.interpolation_csr``; timed with and without dw,
+                   with its bound at every level; timed like phase 7.
 9. device-times -- device-only time of every timed kernel level and library
                    call, and of the B16 forward, from the profiler's kernel
                    events (``device_ms``); then the B16 forward is timed
@@ -122,8 +128,10 @@ from pointcloud_segmentation_attention_tpu_torch.utils.trace_breakdown import ( 
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 EXTENT = np.array([1.9, 1.9, 2.6], np.float32)  # one serving chunk's extent
-FLOAT_TOL = dict(rtol=1e-6, atol=1e-6)
-BWD_TOL = dict(rtol=1e-5, atol=1e-5)   # f32 atomics sum in a run-dependent order
+# The gather backward sums with f32 atomics in a run-dependent order; the
+# interpolation's dw sums each dot product in another order than the plain
+# version.
+BWD_TOL = dict(rtol=1e-5, atol=1e-5)
 LOGIT_TOL = dict(rtol=1e-3, atol=1e-3)
 SA_FEATURES = (6, 64, 128, 256)   # feature channels entering SA1-4
 FP_CHANNELS = (512, 256, 256, 128)  # interpolated channels at FP1-4
@@ -275,18 +283,19 @@ def phase_kernels(dev, batch: int, n: int, reps: int):
         err("three_nn", check_equal(f"three_nn dist {label}", dist, pdist))
         w = plain.interpolation_weights(pdist)
         p2 = torch.randn(batch, xyz2.shape[1], FP_CHANNELS[i], device=dev)
-        err("three_interpolate", check_close(
+        err("three_interpolate", check_equal(
             f"three_interpolate {label}", ops.three_interpolate(p2, nidx, w),
-            plain.three_interpolate(p2, pnidx, w), FLOAT_TOL))
+            plain.three_interpolate(p2, pnidx, w)))
         torch.cuda.synchronize()
         level_time("three_nn", label, functools.partial(ops.three_nn, xyz1, xyz2))
         level_bound("three_nn", label, *three_nn_work(xyz1, xyz2))
         level_time("three_interpolate", label, functools.partial(ops.three_interpolate, p2, nidx, w))
+        level_bound("three_interpolate", label, *interpolate_work(p2, nidx))
         if i == 3:
             fp4 = dict(xyz1=xyz1, xyz2=xyz2, idx=nidx, w=w, p2=p2)
         geom["fp"].append((label, nidx, w, p2))
         log(f"[kernels] {label}: N={xyz1.shape[1]} M={xyz2.shape[1]} C={FP_CHANNELS[i]} "
-            f"three_nn idx and dist equal, interpolate within {FLOAT_TOL}")
+            f"three_nn idx and dist equal, interpolate equal")
 
     # Large clouds: FPS beyond shared memory, ball query over 2^15+ points.
     big = torch.from_numpy(rng.rand(2, (1 << 15) + 256, 3).astype(np.float32)).to(dev)
@@ -312,6 +321,10 @@ def phase_kernels(dev, batch: int, n: int, reps: int):
         "plan variant: " + "; ".join(nn_cases))
     gather_cases = check_gather_edges(dev, rng)
     log(f"[kernels] group_gather equal on random idx at (nsample, C) = {gather_cases}")
+    interp_cases = check_interpolate_edges(dev, rng)
+    log(f"[kernels] three_interpolate equal, its backward's dP equal to the CPU and "
+        f"reproducible, dw within {BWD_TOL} and reproducible, the CSR equal, at "
+        f"{len(interp_cases)} edge shapes covering every plan variant: " + "; ".join(interp_cases))
 
     # Headline shapes: SA1 for the SA kernels, FP4 for the FP kernels.
     b = batch
@@ -366,8 +379,8 @@ def phase_kernels(dev, batch: int, n: int, reps: int):
         library_ms=time_ms(embedding_bag, reps), library_fn=embedding_bag,
         library_call="embedding_bag(mode='sum', per_sample_weights)",
         shape=f"B{b} N{fn_} M{fm} C{fc}")
-    rep["three_interpolate"]["bound_ms"], rep["three_interpolate"]["bound_by"] = bound(
-        b * fm * fc * 4 + b * fn_ * 3 * 8 + b * fn_ * fc * 4, 5.0 * b * fn_ * fc)
+    rep["three_interpolate"]["bound_ms"], rep["three_interpolate"]["bound_by"] = \
+        rep["three_interpolate"]["level_bound"]["FP4"]
     geom["large"] = big
     torch.cuda.synchronize()
     return rep, geom
@@ -381,6 +394,27 @@ def ball_query_work(xyz, centres, idx, cnt, ns):
     m = centres.shape[1]
     visited = torch.where(cnt == ns, idx[..., -1].long() + 1, torch.full_like(cnt, n).long())
     return (b * n * 12 + b * m * 12 + b * m * ns * 4 + b * m * 4, 8.0 * float(visited.sum()))
+
+
+def interpolate_work(points, idx):
+    """(bytes, f32 operations) of the interpolation: P, idx and w read once,
+    the output written; 5 operations per output element."""
+    b, m, c = points.shape
+    n = idx.shape[1]
+    return b * m * c * 4 + b * n * 3 * 8 + b * n * c * 4, 5.0 * b * n * c
+
+
+def interpolate_bwd_work(points, idx, need_dw: bool):
+    """(bytes, f32 operations) of the interpolation backward: g, idx and w
+    read once, dP written, and with dw P read and dw written; 2 operations
+    per element of g and key for dP, 2 more per element and key for dw.  The
+    CSR the kernel builds is scratch and does not count."""
+    b, m, c = points.shape
+    n = idx.shape[1]
+    nbytes = b * n * c * 4 + b * n * 3 * 8 + b * m * c * 4
+    if need_dw:
+        nbytes += b * m * c * 4 + b * n * 3 * 4
+    return nbytes, (12.0 if need_dw else 6.0) * b * n * c
 
 
 def three_nn_work(xyz1, xyz2):
@@ -566,6 +600,93 @@ def check_gather_edges(dev, rng: np.random.RandomState) -> list:
     return cases
 
 
+def check_interpolate_bwd(label: str, g, idx, w, p2) -> float:
+    """The interpolation backward on the card: dP equal to the plain version
+    run on CPU copies (the order of its sums is the CPU's), dP and dw the
+    same bits from call to call, dP without dw the same again, dw within
+    BWD_TOL; the CSR the backward builds equal to ``plain.interpolation_csr``.
+    Returns dw's largest error."""
+    dp, dw = interp_kernels.three_interpolate_backward(g, idx, w, p2)
+    dp2, dw2 = interp_kernels.three_interpolate_backward(g, idx, w, p2)
+    dp_only, none = interp_kernels.three_interpolate_backward(g, idx, w, p2, need_dw=False)
+    if none is not None:
+        raise AssertionError("three_interpolate_bwd returned dw when not asked")
+    pdp, pdw = plain.three_interpolate_backward(g.cpu(), idx.cpu(), w.cpu(), p2.cpu())
+    check_equal(f"three_interpolate_bwd dP {label} (against the CPU)", dp, pdp)
+    check_equal(f"three_interpolate_bwd dP {label} (second call)", dp2, dp)
+    check_equal(f"three_interpolate_bwd dP only {label}", dp_only, dp)
+    check_equal(f"three_interpolate_bwd dw {label} (second call)", dw2, dw)
+    offsets, entries = interp_kernels.interpolation_csr(idx, p2.shape[1])
+    poffsets, pentries = plain.interpolation_csr(idx.cpu(), p2.shape[1])
+    check_equal(f"interpolation CSR offsets {label}", offsets, poffsets)
+    check_equal(f"interpolation CSR entries {label}", entries, pentries)
+    return check_close(f"three_interpolate_bwd dw {label}", dw, pdw, BWD_TOL)
+
+
+def check_interpolate_edges(dev, rng: np.random.RandomState) -> list:
+    """The interpolation forward bit-identical to its plain version, and its
+    backward held as ``check_interpolate_bwd`` holds it, at edge shapes that
+    together run every variant of ``three_interpolate.plan`` (float4 or
+    float accesses, indices shared by shuffle or loaded by each lane) and of
+    ``backward_plan`` (a fused, a chunked and a device-memory-counter CSR;
+    float4 or float; one or several column blocks; 4 or 8 entries ahead):
+    B1, B17, N 1 and ragged, M 1 to 3 (repeated indices in a row), C 1 to
+    512, misaligned pointers (a contiguous slice ``x[1:]``), M 33,024.
+    Returns the cases' labels."""
+    def cloud(b, n):
+        return torch.from_numpy((rng.rand(b, n, 3) * EXTENT).astype(np.float32)).to(dev)
+
+    def floats(shape, misaligned):
+        if not misaligned:
+            return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+        flat = torch.from_numpy(rng.randn(int(np.prod(shape)) + 1).astype(np.float32)).to(dev)
+        return flat[1:].view(*shape)  # contiguous, 4 bytes past a 16-byte boundary
+
+    cases = [
+        # (label, B, N, M, C, misaligned)
+        ("B1", 1, 8192, 1024, 128, False),
+        ("B17", 17, 8192, 1024, 128, False),
+        ("N 1", 2, 1, 5, 7, False),
+        ("ragged N, C 5", 3, 301, 17, 5, False),
+        ("M 1, C 3", 2, 300, 1, 3, False),
+        ("M 2, C 1", 2, 300, 2, 1, False),
+        ("M 3, C 130", 2, 777, 3, 130, False),
+        ("C 512", 2, 1000, 64, 512, False),
+        ("C 4", 2, 500, 40, 4, False),
+        ("misaligned, C 5", 2, 500, 40, 5, True),
+        ("misaligned, C 128", 2, 500, 40, 128, True),
+        ("M 33,024", 2, 2000, 33_024, 64, False),
+    ]
+    labels, seen = [], set()
+    for label, b, n, m, c, misaligned in cases:
+        xyz1, xyz2 = cloud(b, n), cloud(b, m)
+        dist, idx = ops.three_nn(xyz1, xyz2)
+        w = plain.interpolation_weights(dist)
+        p2, g = floats((b, m, c), misaligned), floats((b, n, c), misaligned)
+        fp = interp_kernels.plan(b, n, m, c, not misaligned)
+        bp = interp_kernels.backward_plan(b, n, m, c, not misaligned)
+        csr = bp.csr.variant + ("" if bp.csr.variant == "fused" or bp.csr.smem_bytes else
+                                "-device-counters")
+        seen |= {("fwd", fp.vector, fp.lanes >= 4), ("csr", csr),
+                 ("bwd", bp.vector, bp.col_blocks > 1), ("ahead", bp.ahead)}
+        label = (f"{label} (B{b} N{n} M{m} C{c}: fwd {'float4' if fp.vector else 'float'} "
+                 f"L{fp.lanes}; bwd {csr} CSR, {'float4' if bp.vector else 'float'} L{bp.lanes} "
+                 f"x{bp.col_blocks} blocks, {bp.ahead} ahead)")
+        check_equal(f"three_interpolate {label}", interp_kernels.three_interpolate(p2, idx, w),
+                    plain.three_interpolate(p2, idx, w))
+        check_interpolate_bwd(label, g, idx, w, p2)
+        labels.append(label)
+    torch.cuda.synchronize()
+    want = {("fwd", v, s) for v in (True, False) for s in (True, False)}
+    want |= {("csr", k) for k in ("fused", "chunked", "chunked-device-counters")}
+    want |= {("bwd", v, y) for v in (True, False) for y in (True, False)}
+    want |= {("ahead", a) for a in (interp_kernels.CONSUME_SMALL[0],
+                                    interp_kernels.CONSUME_LARGE[0])}
+    if want != seen:
+        raise AssertionError(f"interpolation edge shapes missed plan variants {want - seen}")
+    return labels
+
+
 def phase_kernels_bwd(dev, geom: dict, reps: int) -> dict:
     """The two backward kernels against their plain versions (rtol = atol =
     1e-5) at SA2-4 / FP1-4 and a large N; times at SA2 and FP4."""
@@ -589,21 +710,19 @@ def phase_kernels_bwd(dev, geom: dict, reps: int) -> dict:
 
     def interp_case(label, idx, w, p2, timed):
         g = torch.randn(idx.shape[0], idx.shape[1], p2.shape[-1], device=dev, generator=rng)
-        dp, dw = interp_kernels.three_interpolate_backward(g, idx, w, p2)
-        pdp, pdw = plain.three_interpolate_backward(g, idx, w, p2)
-        err("three_interpolate_bwd", check_close(f"three_interpolate_bwd dP {label}", dp, pdp,
-                                                 BWD_TOL))
-        err("three_interpolate_bwd", check_close(f"three_interpolate_bwd dw {label}", dw, pdw,
-                                                 BWD_TOL))
-        no_dw = interp_kernels.three_interpolate_backward(g, idx, w, p2, need_dw=False)
-        if no_dw[1] is not None:
-            raise AssertionError("three_interpolate_bwd returned dw when not asked")
-        err("three_interpolate_bwd", check_close(f"three_interpolate_bwd dP only {label}",
-                                                 no_dw[0], pdp, BWD_TOL))
+        err("three_interpolate_bwd", check_interpolate_bwd(label, g, idx, w, p2))
         if timed:
+            r = rep["three_interpolate_bwd"]
             fn = lambda: interp_kernels.three_interpolate_backward(g, idx, w, p2)  # noqa: E731
-            rep["three_interpolate_bwd"]["levels"][label] = time_ms(fn, reps)
-            rep["three_interpolate_bwd"]["device_fns"][label] = fn
+            dp_fn = lambda: interp_kernels.three_interpolate_backward(  # noqa: E731
+                g, idx, w, p2, need_dw=False)
+            r["levels"][label] = time_ms(fn, reps)
+            r["device_fns"][label] = fn
+            r.setdefault("level_bound", {})[label] = bound(*interpolate_bwd_work(p2, idx, True))
+            r.setdefault("dp_levels", {})[label] = time_ms(dp_fn, reps)
+            r.setdefault("dp_fns", {})[label] = dp_fn
+            r.setdefault("dp_level_bound", {})[label] = bound(
+                *interpolate_bwd_work(p2, idx, False))
         return g
 
     heads = {}
@@ -615,8 +734,10 @@ def phase_kernels_bwd(dev, geom: dict, reps: int) -> dict:
         g = interp_case(label, idx, w, p2, True)
         if label == "FP4":
             heads["interp"] = (g, idx, w, p2)
-    log(f"[kernels-bwd] SA2-4 gather backward and FP1-4 interpolation backward (dP, dw) "
-        f"within {BWD_TOL}")
+    log(f"[kernels-bwd] SA2-4 gather backward within {BWD_TOL}; FP1-4 interpolation backward: "
+        f"dP equal to the plain version on CPU copies and from call to call (also without dw), "
+        f"dw within {BWD_TOL} and equal from call to call, the CSR equal to "
+        f"plain.interpolation_csr")
 
     # Large N: 33,024 rows scattered into, and interpolated from.
     big = geom["large"]
@@ -626,11 +747,15 @@ def phase_kernels_bwd(dev, geom: dict, reps: int) -> dict:
     gather_case("large N", big_idx, n_big, 64, False)
     known = big[:, :1024].contiguous()
     dist, nidx = ops.three_nn(big, known)
-    interp_case("large N", nidx, plain.interpolation_weights(dist),
-                torch.randn(2, 1024, 128, device=dev, generator=rng), False)
+    big_w = plain.interpolation_weights(dist)
+    big_p = torch.randn(2, 1024, 128, device=dev, generator=rng)
+    check_equal("three_interpolate large N", ops.three_interpolate(big_p, nidx, big_w),
+                plain.three_interpolate(big_p, nidx, big_w))
+    interp_case("large N", nidx, big_w, big_p, False)
     torch.cuda.synchronize()
-    log(f"[kernels-bwd] large N={n_big}: gather backward (2 x 4096 x 32 rows, C64) and "
-        f"interpolation backward (M1024, C128) within {BWD_TOL}")
+    log(f"[kernels-bwd] large N={n_big}: gather backward (2 x 4096 x 32 rows, C64) within "
+        f"{BWD_TOL}; interpolation (M1024, C128) equal, its backward's dP equal to the CPU, "
+        f"dw within {BWD_TOL}")
 
     # Gather backward at SA2: bytes of g, idx and dP; one add per g element.
     g, idx, n = heads["gather"]
@@ -678,9 +803,8 @@ def phase_kernels_bwd(dev, geom: dict, reps: int) -> dict:
         library_fn=embedding_bag_backward,
         library_call="embedding_bag(mode='sum', per_sample_weights) backward",
         shape=f"B{b} N{fn_} M{fm} C{fc} (dP and dw)")
-    rep["three_interpolate_bwd"]["bound_ms"], rep["three_interpolate_bwd"]["bound_by"] = bound(
-        b * fn_ * fc * 4 + b * fn_ * 3 * 8 + 2 * b * fm * fc * 4 + b * fn_ * 3 * 4,
-        12.0 * b * fn_ * fc)
+    rep["three_interpolate_bwd"]["bound_ms"], rep["three_interpolate_bwd"]["bound_by"] = \
+        rep["three_interpolate_bwd"]["level_bound"]["FP4"]
     torch.cuda.synchronize()
     return rep
 
@@ -692,6 +816,8 @@ def phase_device_times(rep: dict) -> None:
     afterwards (PERF.md, Findings), and no wall time may carry that."""
     for r in rep.values():
         r["level_device"] = {label: device_ms(fn) for label, fn in r.pop("device_fns").items()}
+        if "dp_fns" in r:  # the interpolation backward without dw
+            r["dp_level_device"] = {label: device_ms(fn) for label, fn in r.pop("dp_fns").items()}
         r["device_ms"] = r["level_device"][r.pop("headline")]
         lib = r.pop("library_fn")
         r["library_device_ms"] = None if lib is None else device_ms(lib)
@@ -1078,8 +1204,16 @@ def main() -> int:
             "parity": "pass", "shape": r["shape"], "level_ms": r["levels"],
             "level_device_ms": r["level_device"],
         })
-        if "level_bound" in r:  # ball query and three-NN: the bound at every level
+        if "level_bound" in r:  # ball query, three-NN, interpolation: the bound per level
             line[-1]["level_bound_ms"] = {k: v[0] for k, v in r["level_bound"].items()}
+        if "dp_levels" in r:  # the interpolation backward without dw, as the train step runs it
+            line[-1].update(dp_only_level_ms=r["dp_levels"],
+                            dp_only_level_device_ms=r["dp_level_device"],
+                            dp_only_level_bound_ms={k: v[0] for k, v in
+                                                    r["dp_level_bound"].items()})
+            log(f"[report] {name:21s} without dw, per level ms wall/device/bound: " + " ".join(
+                f"{k}={v:.4f}/{r['dp_level_device'][k]:.4f}/{r['dp_level_bound'][k][0]:.4f}"
+                for k, v in r["dp_levels"].items()))
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

@@ -9,12 +9,19 @@ or imported when this module is imported: the CPU-only test machine never
 reaches ``build()``.
 
 Every wrapper launches on PyTorch's current stream, allocates its outputs
-with ``torch.empty``, raises if the launch reports an error, and adds one to
-its ``launches`` counter when it launches its kernel.  The gather and the
-interpolation are differentiable through ``torch.autograd.Function``s whose
-backward is a kernel too (``group_gather.GroupPoint``,
+and scratch with ``torch.empty``, raises if the launch reports an error, and
+adds one to its ``launches`` counter when it launches its kernel: one count
+per call of the wrapper, however many kernels its C entry point queues (the
+interpolation backward queues four: three CSR passes and the consuming
+pass; ``three_interpolate.interpolation_csr`` runs the CSR passes alone and
+has a counter of its own).  The gather and the interpolation are
+differentiable through ``torch.autograd.Function``s whose backward is a
+kernel too (``group_gather.GroupPoint``,
 ``three_interpolate.ThreeInterpolate``); a wrapper that has no backward
-refuses to run where autograd would need one (``refuse_grad``).
+refuses to run where autograd would need one (``refuse_grad``).  Where a
+kernel has a launch plan (FPS, ball query, three-NN, the interpolation and
+its backward), a pure ``plan()`` in the wrapper's module chooses it and the
+C entry point refuses a plan that would miss work.
 """
 from __future__ import annotations
 
@@ -49,8 +56,11 @@ _SIGNATURES = {
     "psa_group_gather_bwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "psa_three_nn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "psa_three_nn_allow_smem": (_I, _P),  # the stream is not used
-    "psa_three_interpolate": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "psa_three_interpolate_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # the interpolation takes its plan's fields after the shapes
+    "psa_three_interpolate": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "psa_interpolation_csr": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "psa_three_interpolate_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 DEFAULT_SMEM_BYTES = 48 * 1024   # dynamic shared memory a kernel may take unasked

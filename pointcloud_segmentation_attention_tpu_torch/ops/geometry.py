@@ -172,7 +172,10 @@ def three_interpolate_backward(g: torch.Tensor, idx: torch.Tensor, weight: torch
     """The gradients of ``three_interpolate``: g (B,N,C) -> dP (B,M,C), the
     scatter-add of ``weight[b,n,k] * g[b,n]`` into rows ``idx[b,n,k]``, and
     dw (B,N,3), ``dw[b,n,k] = <g[b,n], points[b, idx[b,n,k]]>``; idx gets
-    none.  The oracle of ``csrc/three_interpolate_bwd.cu``."""
+    none.  The oracle of ``csrc/three_interpolate_bwd.cu``.  On the CPU,
+    ``index_add_`` adds each row's products from 0 in ascending (n, k)
+    order, and the kernel's dP matches that bit for bit; on the card
+    ``index_add_`` adds them with atomics in no fixed order."""
     b, n, c = g.shape
     m = points.shape[1]
     offset = torch.arange(b, device=g.device)[:, None, None] * m
@@ -182,6 +185,20 @@ def three_interpolate_backward(g: torch.Tensor, idx: torch.Tensor, weight: torch
     dp.index_add_(0, rows, contrib)
     dw = (group_point(points, idx) * g[:, :, None, :]).sum(dim=-1)
     return dp.reshape(b, m, c), dw
+
+
+def interpolation_csr(idx: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The transpose of idx (B,N,3) as a CSR over the B*M known points: a
+    stable sort of the flat keys ``b*M + idx[b,n,k]``.  Returns offsets
+    (B*M + 1) and entries (3BN), int32: the entries of key b*M + t are the
+    flat indices ``b*3N + 3n + k`` with ``idx[b,n,k] == t``, ascending.  The
+    oracle of the CSR passes of ``csrc/three_interpolate_bwd.cu``."""
+    b = idx.shape[0]
+    keys = (idx.long() + torch.arange(b, device=idx.device)[:, None, None] * m).reshape(-1)
+    entries = torch.sort(keys, stable=True).indices.to(torch.int32)
+    offsets = torch.zeros(b * m + 1, dtype=torch.int64, device=idx.device)
+    offsets[1:] = torch.bincount(keys, minlength=b * m).cumsum(0)
+    return offsets.to(torch.int32), entries
 
 
 def interpolation_weights(dist: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:

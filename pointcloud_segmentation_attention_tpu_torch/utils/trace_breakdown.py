@@ -50,9 +50,12 @@ from pointcloud_segmentation_attention_tpu_torch.train import (
     seg_train_step,
 )
 
+# Substrings of the csrc/ kernels' names; each is a group of its own.  The
+# interpolation backward is its CSR passes (interp_csr_walk/scan/fused), the
+# consuming pass and, with dw over several column blocks, dw_combine_kernel.
 OWN_KERNELS = ("fps_regs_kernel", "fps_mem_kernel", "ball_query_kernel", "group_gather_kernel",
                "group_gather_bwd_kernel", "three_nn_kernel", "three_interpolate_kernel",
-               "three_interpolate_dp_kernel", "three_interpolate_dw_kernel")
+               "interp_csr_", "three_interpolate_bwd_kernel", "dw_combine_kernel")
 EXTENT = np.array([1.9, 1.9, 2.6], np.float32)
 BATCH, NPOINTS, STEPS, SCENE_POINTS, SEED = 16, 8192, 5, 150_000, 0
 OUT = "chiprun_out"

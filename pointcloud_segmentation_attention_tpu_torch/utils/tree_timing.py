@@ -16,7 +16,10 @@ file lives in, builds its kernels, and measures full-width
   150k-point rooms made before the window; ``step_device_ms`` likewise from
   the profiler over 3 steps;
 - ``serve_points_per_s``: one synthetic 150k-point room served (chunk,
-  predict in B16 batches, stitch) after one warm-up room.
+  predict in B16 batches, stitch) after one warm-up room;
+- ``interp_levels``: at FP1-4 of one B16 x 8192 forward's geometry, the
+  device ms of the interpolation kernel, of its backward with dw and
+  without (the train step's case), from the profiler over 10 calls each.
 
 Prints one JSON line with the card's name and power limit.  Needs a CUDA
 card; it does not fall back to the CPU.
@@ -62,6 +65,34 @@ def _events_ms(fn, reps: int, burst: int) -> list:
         end.record()
         end.synchronize()
         out.append(start.elapsed_time(end) / burst)
+    return out
+
+
+def _interp_levels(dev) -> dict:
+    from pointcloud_segmentation_attention_tpu_torch import ops
+    from pointcloud_segmentation_attention_tpu_torch.models import sem_seg
+    from pointcloud_segmentation_attention_tpu_torch.ops import geometry as plain
+    from pointcloud_segmentation_attention_tpu_torch.ops.cuda import three_interpolate as ti
+
+    rng = np.random.RandomState(0)
+    gen = torch.Generator(dev).manual_seed(0)
+    xyz = torch.from_numpy((rng.rand(BATCH, NPOINTS, 3) * EXTENT).astype(np.float32)).to(dev)
+    levels = [xyz]
+    for npoint in sem_seg.SA_NPOINTS:
+        levels.append(plain.gather_point(levels[-1], ops.farthest_point_sample(levels[-1], npoint)))
+    out = {}
+    for i, c in enumerate((512, 256, 256, 128)):
+        xyz1, xyz2 = levels[3 - i], levels[4 - i]
+        dist, idx = ops.three_nn(xyz1, xyz2)
+        w = plain.interpolation_weights(dist)
+        p = torch.randn(BATCH, xyz2.shape[1], c, device=dev, generator=gen)
+        g = torch.randn(BATCH, xyz1.shape[1], c, device=dev, generator=gen)
+        out[f"FP{i + 1}"] = {
+            "forward": _device_ms(lambda: ti.three_interpolate(p, idx, w), 10),
+            "backward_dp_dw": _device_ms(lambda: ti.three_interpolate_backward(g, idx, w, p), 10),
+            "backward_dp": _device_ms(
+                lambda: ti.three_interpolate_backward(g, idx, w, p, need_dw=False), 10),
+        }
     return out
 
 
@@ -143,6 +174,7 @@ def main() -> int:
     # Profiled last: a process that has run the profiler may launch more slowly.
     res["forward_device_ms"] = _device_ms(forward, 5)
     res["step_device_ms"] = _device_ms(lambda: seg_train_step(state, batches[3]), 3)
+    res["interp_levels"] = _interp_levels(dev)
     res["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                   "--format=csv,noheader"], capture_output=True, text=True,
                                  check=True).stdout.strip().splitlines()[0]

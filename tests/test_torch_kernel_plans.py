@@ -1,7 +1,9 @@
 """The host side of the port's kernels, without a card or nvcc: the launch
 plans of FPS, ball query and three-NN (``ops/cuda/{fps,ball_query,
-three_nn}.py:plan``), the lean launch path (``ops/cuda/__init__.py:launch``)
-and the wrappers' argument lists against a stub ctypes library."""
+three_nn}.py:plan``; the interpolation's are in
+``test_torch_interpolation.py``), the lean launch path
+(``ops/cuda/__init__.py:launch``) and the wrappers' argument lists against a
+stub ctypes library."""
 from __future__ import annotations
 
 import contextlib
@@ -14,6 +16,7 @@ import torch
 from pointcloud_segmentation_attention_tpu_torch.ops import cuda
 from pointcloud_segmentation_attention_tpu_torch.ops.cuda import ball_query as bq
 from pointcloud_segmentation_attention_tpu_torch.ops.cuda import fps
+from pointcloud_segmentation_attention_tpu_torch.ops.cuda import three_interpolate as ti
 from pointcloud_segmentation_attention_tpu_torch.ops.cuda import three_nn as tn
 from pointcloud_segmentation_attention_tpu_torch.ops.geometry import radius_threshold
 
@@ -226,7 +229,7 @@ def test_launch_resolves_each_entry_point_once(stub_library, monkeypatch):
             cuda.launch(name, dev, 1, 2)
         monkeypatch.setattr(cuda, "_lock", _NoLock())  # loaded: no lock from here on
     (lib,) = stub_library.libs
-    assert set(cuda._SIGNATURES) == set(lib.lookups) and len(lib.lookups) == 8
+    assert set(cuda._SIGNATURES) == set(lib.lookups) and len(lib.lookups) == 9
     assert lib.lookups == {name: 1 for name in cuda._SIGNATURES}
     for name, argtypes in cuda._SIGNATURES.items():
         fn = lib._fns[name]
@@ -259,7 +262,10 @@ def cpu_wrappers(stub_library, monkeypatch):
 
     monkeypatch.setattr(bq, "check_input", accept)
     monkeypatch.setattr(tn, "check_input", accept)
+    monkeypatch.setattr(ti, "check_input", accept)
     bq.ball_query.launches = tn.three_nn.launches = 0
+    ti.three_interpolate.launches = ti.three_interpolate_backward.launches = 0
+    ti.interpolation_csr.launches = 0
     return stub_library
 
 
@@ -306,3 +312,66 @@ def test_three_nn_smem_opt_in_is_per_device_and_grows(cpu_wrappers):
     (lib,) = cpu_wrappers.libs
     assert lib._fns["psa_three_nn_allow_smem"].calls == [(big, 0xBEEF), (small, 0xBEEF)]
     assert cpu_wrappers.switches == [1]
+
+
+def _interp_inputs(b, n, m, c, misaligned=False):
+    flat = torch.zeros(b * m * c + 1)
+    points = flat[1:].view(b, m, c) if misaligned else torch.zeros(b, m, c)
+    return points, torch.zeros(b, n, 3, dtype=torch.int32), torch.zeros(b, n, 3)
+
+
+@pytest.mark.parametrize("b, n, m, c, misaligned", [
+    (16, 8192, 1024, 128, False), (16, 64, 16, 512, False), (3, 301, 17, 5, False),
+    (2, 500, 40, 128, True), (2, 10, 3, 4, False)])
+def test_three_interpolate_wrapper_passes_its_plan(cpu_wrappers, b, n, m, c, misaligned):
+    points, idx, weight = _interp_inputs(b, n, m, c, misaligned)
+    out = ti.three_interpolate(points, idx, weight)
+    assert out.shape == (b, n, c)
+    (lib,) = cpu_wrappers.libs
+    (call,) = lib._fns["psa_three_interpolate"].calls
+    p = ti.plan(b, n, m, c, not misaligned)
+    assert call == (points.data_ptr(), idx.data_ptr(), weight.data_ptr(), out.data_ptr(), b, m,
+                    n, c, int(p.vector), p.lanes, p.threads, p.blocks, 0xBEEF)
+    assert len(call) == len(cuda._SIGNATURES["psa_three_interpolate"])
+    assert ti.three_interpolate.launches == 1
+
+
+@pytest.mark.parametrize("b, n, m", [(16, 8192, 1024), (16, 64, 16), (2, 2000, 33_024)])
+def test_interpolation_csr_wrapper_passes_its_plan(cpu_wrappers, b, n, m):
+    idx = torch.zeros(b, n, 3, dtype=torch.int32)
+    offsets, entries = ti.interpolation_csr(idx, m)
+    assert offsets.shape == (b * m + 1,) and entries.shape == (3 * b * n,)
+    (lib,) = cpu_wrappers.libs
+    (call,) = lib._fns["psa_interpolation_csr"].calls
+    p = ti.csr_plan(b, n, m)
+    assert call[:3] == (idx.data_ptr(), offsets.data_ptr(), entries.data_ptr())
+    assert isinstance(call[3], int)  # the histograms' scratch
+    assert call[4:] == (b, n, m, int(p.variant == "fused"), p.steps, p.warps, p.smem_bytes,
+                        0xBEEF)
+    assert len(call) == len(cuda._SIGNATURES["psa_interpolation_csr"])
+    assert ti.interpolation_csr.launches == 1
+
+
+@pytest.mark.parametrize("b, n, m, c", [(16, 8192, 1024, 128), (16, 64, 16, 512),
+                                        (2, 777, 3, 130)])
+@pytest.mark.parametrize("need_dw", [True, False])
+def test_three_interpolate_backward_wrapper_passes_its_plan(cpu_wrappers, b, n, m, c, need_dw):
+    points, idx, weight = _interp_inputs(b, n, m, c)
+    g = torch.zeros(b, n, c)
+    dp, dw = ti.three_interpolate_backward(g, idx, weight, points, need_dw=need_dw)
+    assert dp.shape == (b, m, c) and (dw is None) == (not need_dw)
+    (lib,) = cpu_wrappers.libs
+    (call,) = lib._fns["psa_three_interpolate_bwd"].calls
+    p = ti.backward_plan(b, n, m, c, True)
+    assert call[:6] == (g.data_ptr(), idx.data_ptr(), weight.data_ptr(),
+                        points.data_ptr() if need_dw else None, dp.data_ptr(),
+                        dw.data_ptr() if need_dw else None)
+    # The column blocks' partial dot products need scratch only with dw and several blocks.
+    assert (call[6] is None) == (not need_dw or p.col_blocks == 1)
+    assert all(isinstance(ptr, int) for ptr in call[7:10])  # offsets, pairs, histograms
+    csr = p.csr
+    assert call[10:] == (b, m, n, c, int(csr.variant == "fused"), csr.steps, csr.warps,
+                         csr.smem_bytes, int(p.vector), p.lanes, p.ahead, p.col_blocks,
+                         p.threads, 0xBEEF)
+    assert len(call) == len(cuda._SIGNATURES["psa_three_interpolate_bwd"])
+    assert ti.three_interpolate_backward.launches == 1
