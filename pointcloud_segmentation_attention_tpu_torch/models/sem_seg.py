@@ -1,6 +1,7 @@
 """Semantic-segmentation model (ScanNet, 21 classes): PointNet++ with
-single-scale grouping, the counterpart of the JAX package's
-``models/sem_seg.py:SemSegNet`` for max pooling at every SA level.
+single-scale grouping and a pooling per SA level, the counterpart of the JAX
+package's ``models/sem_seg.py:SemSegNet`` (baseline, features, attention at
+every level, attention at one level, attention plus max pooling).
 
 Hierarchy: SA npoint 1024/256/64/16, radius .1/.2/.4/.8, nsample 32, mlps
 [32,32,64]/[64,64,128]/[128,128,256]/[256,256,512]; FP [256,256]/[256,256]/
@@ -16,6 +17,7 @@ import torch
 from torch import nn
 
 from pointcloud_segmentation_attention_tpu_torch.nn import (
+    Dense,
     Dropout,
     FeaturePropagation,
     PointConv,
@@ -32,7 +34,8 @@ FP_MLPS = ((256, 256), (256, 256), (256, 128), (128, 128, 128))
 
 class SemSegNet(nn.Module):
     """PointNet++ semantic segmentation.  ``in_features`` is the per-point
-    feature width (0: xyz only; 6: colors + normals)."""
+    feature width (0: xyz only; 6: colors + normals); ``sa_pooling`` one
+    ``SetAbstraction`` pooling per SA level."""
 
     def __init__(
         self,
@@ -66,7 +69,7 @@ class SemSegNet(nn.Module):
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """Re-draw every kernel from ``generator``; zero biases, unit BN."""
         for mod in self.modules():
-            if isinstance(mod, PointConv):
+            if isinstance(mod, (PointConv, Dense)):
                 mod.reset_parameters(generator)
             elif isinstance(mod, ScheduledBatchNorm):
                 with torch.no_grad():

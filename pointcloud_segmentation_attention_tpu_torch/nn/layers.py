@@ -1,4 +1,5 @@
-"""Core layers: pointwise convolution, scheduled-momentum BatchNorm, dropout.
+"""Core layers: pointwise convolution, scheduled-momentum BatchNorm, dense,
+dropout.
 
 Counterparts of the JAX package's ``nn/layers.py``.  Kernels keep Flax's
 (in, out) layout, so checkpoints of the JAX package load without transposes.
@@ -44,6 +45,17 @@ class ScheduledBatchNorm(nn.Module):
         return (x - mean) * inv + self.bias
 
 
+def _xavier_uniform_(kernel: torch.Tensor, bias: torch.Tensor,
+                     generator: Optional[torch.Generator]) -> None:
+    """Draw an (in, out) kernel xavier-uniform from ``generator``; zero the bias."""
+    c_in, c_out = kernel.shape
+    bound = math.sqrt(6.0 / (c_in + c_out))
+    with torch.no_grad():
+        u = torch.rand(kernel.shape, generator=generator)
+        kernel.copy_((2.0 * u - 1.0) * bound)
+        bias.zero_()
+
+
 class PointConv(nn.Module):
     """Pointwise (1x1) conv over the channel axis: ``x @ kernel + bias``, then
     optional BN and ReLU.  Works on any (..., C_in) tensor.  The matmul is
@@ -59,12 +71,7 @@ class PointConv(nn.Module):
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """Xavier-uniform kernel (Flax's default here), zero bias."""
-        c_in, c_out = self.kernel.shape
-        bound = math.sqrt(6.0 / (c_in + c_out))
-        with torch.no_grad():
-            u = torch.rand(self.kernel.shape, generator=generator)
-            self.kernel.copy_((2.0 * u - 1.0) * bound)
-            self.bias.zero_()
+        _xavier_uniform_(self.kernel, self.bias, generator)
 
     def forward(self, x: torch.Tensor, bn_momentum: float = 0.9) -> torch.Tensor:
         y = torch.matmul(x, self.kernel) + self.bias
@@ -90,6 +97,24 @@ class SharedMLP(nn.Module):
         for i in range(self.n_layers):
             x = getattr(self, f"conv{i}")(x, bn_momentum=bn_momentum)
         return x
+
+
+class Dense(nn.Module):
+    """Plain dense layer, ``x @ kernel + bias`` over the last axis: an (in,
+    out) kernel drawn xavier-uniform, a zero bias (tf.layers.Dense's
+    initialisers, as the JAX package's ``Dense``)."""
+
+    def __init__(self, c_in: int, features: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(c_in, features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        _xavier_uniform_(self.kernel, self.bias, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(x, self.kernel) + self.bias
 
 
 class Dropout(nn.Module):

@@ -11,17 +11,19 @@ reaches ``build()``.
 Every wrapper launches on PyTorch's current stream, allocates its outputs
 and scratch with ``torch.empty``, raises if the launch reports an error, and
 adds one to its ``launches`` counter when it launches its kernel: one count
-per call of the wrapper, however many kernels its C entry point queues (the
-interpolation backward queues four: three CSR passes and the consuming
-pass; ``three_interpolate.interpolation_csr`` runs the CSR passes alone and
-has a counter of its own).  The gather and the interpolation are
+per call of the wrapper, however many kernels its C entry point queues (each
+backward queues up to four: three CSR passes of ``csrc/csr.cuh`` and its
+consuming pass; ``three_interpolate.interpolation_csr`` and
+``group_gather.group_gather_csr`` run the CSR passes alone and have
+counters of their own).  The gather and the interpolation are
 differentiable through ``torch.autograd.Function``s whose backward is a
 kernel too (``group_gather.GroupPoint``,
 ``three_interpolate.ThreeInterpolate``); a wrapper that has no backward
 refuses to run where autograd would need one (``refuse_grad``).  Where a
 kernel has a launch plan (FPS, ball query, three-NN, the interpolation and
-its backward), a pure ``plan()`` in the wrapper's module chooses it and the
-C entry point refuses a plan that would miss work.
+both backwards, whose shared CSR is planned in ``csr.py``), a pure
+``plan()`` in the wrapper's module chooses it and the C entry point refuses
+a plan that would miss work.
 """
 from __future__ import annotations
 
@@ -41,7 +43,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("fps.cu", "ball_query.cu", "group_gather.cu", "group_gather_bwd.cu",
            "three_nn.cu", "three_interpolate.cu", "three_interpolate_bwd.cu")
-HEADERS = ("point_tiles.cuh",)  # included by sources; part of the library's hash
+HEADERS = ("point_tiles.cuh", "csr.cuh")  # included by sources; part of the library's hash
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -53,7 +55,10 @@ _SIGNATURES = {
     "psa_ball_query": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _I, _I, _I, _I, _I,
                        _P),
     "psa_group_gather": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "psa_group_gather_bwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # the gather backward takes its scratch and plan's fields after the shapes
+    "psa_group_gather_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _I, _P),
+    "psa_group_gather_csr": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "psa_three_nn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "psa_three_nn_allow_smem": (_I, _P),  # the stream is not used
     # the interpolation takes its plan's fields after the shapes

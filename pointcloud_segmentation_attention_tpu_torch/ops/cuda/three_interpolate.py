@@ -10,9 +10,11 @@ import torch
 
 from pointcloud_segmentation_attention_tpu_torch.ops.cuda import (
     check_input,
+    csr,
     launch,
     refuse_grad,
 )
+from pointcloud_segmentation_attention_tpu_torch.ops.cuda.csr import CsrPlan
 
 THREADS_FWD = 128        # threads a block of the forward
 PER_ROW_LANE = 2         # the most elements (float4s or floats) a forward lane takes of a row
@@ -20,17 +22,6 @@ PER_ROW_LANE = 2         # the most elements (float4s or floats) a forward lane 
 # block) for fewer than SMALL_GROUPS lane groups (FP1-2 at B16), and beyond.
 SMALL_GROUPS = 4096
 CONSUME_SMALL, CONSUME_LARGE = (8, 256), (4, 128)
-CSR_STEPS = (8, 64)      # the least and most 32-entry steps of a chunked CSR's chunk
-CSR_WARPS = (8, 4, 2, 1)  # chunks (warps) a block of the chunked CSR passes, most first
-FUSED_WARPS = 32         # the most warps (chunks) of a fused CSR's block
-FUSED_MAX_STEPS = 8      # the most 32-entry steps of a fused CSR's chunk
-SMEM_LIMIT = 47 * 1024   # dynamic shared memory of a CSR block (csrc: kSmemLimit)
-SCAN_TILE = 256          # keys a block of the chunked CSR's scan takes (csrc: kScanTile)
-MIN_BLOCKS = 264         # two blocks per SM of an H100
-
-
-def _pow2_at_least(x: int) -> int:
-    return 1 << max(0, x - 1).bit_length()
 
 
 def aligned(*tensors: torch.Tensor) -> bool:
@@ -64,53 +55,21 @@ def plan(b: int, n: int, m: int, c: int, is_aligned: bool) -> InterpolatePlan:
         raise ValueError(f"three_interpolate plan needs B, N, M, C >= 1, got {b}, {n}, {m}, {c}")
     vector = is_aligned and c % 4 == 0
     width = c // 4 if vector else c
-    lanes = min(32, _pow2_at_least(-(-width // PER_ROW_LANE)))
+    lanes = min(32, csr.pow2_at_least(-(-width // PER_ROW_LANE)))
     return InterpolatePlan(vector, lanes, 32 // lanes, THREADS_FWD,
                            -(-n // (THREADS_FWD // lanes)))
 
 
-class CsrPlan(NamedTuple):
-    """How the CSR passes of ``csrc/three_interpolate_bwd.cu`` run one call."""
-
-    variant: str      # "fused": one kernel, a block per batch; "chunked": three kernels
-    steps: int        # 32-entry steps in a chunk (a warp's share of a batch's 3N entries)
-    chunks: int       # chunks per batch
-    warps: int        # chunks (warps) per block
-    smem_bytes: int   # the warps' key counters (M each) in shared memory; 0: in the histogram
-    hist_ints: int    # the chunked layout's per-chunk counts and per-tile sums of them
-
-
 @functools.lru_cache(maxsize=256)
 def csr_plan(b: int, n: int, m: int) -> CsrPlan:
-    """The CSR of B batches of N rows of 3 indices into M known points.
-
-    Fused where one block of up to 32 warps, each with M counters in shared
-    memory, covers a batch's 3N entries in at most ``FUSED_MAX_STEPS`` steps
-    of 32 each (FP1-3 at B16).  Else chunked: a chunk holds about M / 2
-    entries (16 steps at FP4: the histograms hold about twice as many ints
-    as there are entries; 32 steps measured 2.6 us slower on an H100,
-    ``utils/plan_sweep.py``), between ``CSR_STEPS`` steps of 32, and no more
-    than a batch has; its counters sit in shared memory while a warp's M ints
-    fit, else in the histogram; a block takes the most chunks (up to 8,
-    within the limit) that still leave ``MIN_BLOCKS`` blocks."""
+    """The CSR of B batches of N rows of 3 indices into M known points:
+    ``csr.plan`` of 3N entries a batch and M keys (fused at FP1-3 at B16,
+    chunked with 16 steps a chunk at FP4)."""
     if min(b, n, m) < 1:
         raise ValueError(f"interpolation CSR plan needs B, N, M >= 1, got {b}, {n}, {m}")
     if 3 * b * n >= 2 ** 31:
         raise ValueError(f"3 * B * N = {3 * b * n} entries do not fit int32")
-    most = min(FUSED_WARPS, SMEM_LIMIT // (4 * m))
-    if most >= 1 and -(-3 * n // (32 * most)) <= FUSED_MAX_STEPS:
-        steps = -(-3 * n // (32 * most))
-        warps = -(-3 * n // (32 * steps))
-        return CsrPlan("fused", steps, warps, warps, 4 * m * warps, 0)
-    lo, hi = CSR_STEPS
-    steps = min(max(lo, _pow2_at_least(-(-m // 64))), hi, -(-3 * n // 32))
-    chunks = -(-3 * n // (32 * steps))
-    in_smem = 4 * m <= SMEM_LIMIT
-    fits = [w for w in CSR_WARPS if w == 1 or (w <= chunks
-                                               and (not in_smem or 4 * m * w <= SMEM_LIMIT))]
-    warps = next(w for w in fits if w == 1 or b * -(-chunks // w) >= MIN_BLOCKS)
-    return CsrPlan("chunked", steps, chunks, warps, 4 * m * warps if in_smem else 0,
-                   b * chunks * (m + -(-m // SCAN_TILE)))
+    return csr.plan(b, 3 * n, m)
 
 
 class BackwardPlan(NamedTuple):
@@ -136,16 +95,16 @@ def backward_plan(b: int, n: int, m: int, c: int, is_aligned: bool) -> BackwardP
     keep 8 entries' g rows in flight a lane in blocks of 256 threads, more
     keep 4 in blocks of 128: from ``utils/plan_sweep.py`` on an H100 (FP1
     dP+dw 8.6 against 10.6 us, FP4 72.5 against 75.9 us)."""
-    csr = csr_plan(b, n, m)
+    sort = csr_plan(b, n, m)
     if c < 1:
         raise ValueError(f"three_interpolate backward plan needs C >= 1, got {c}")
     vector = is_aligned and c % 4 == 0
     width = c // 4 if vector else c
-    lanes = min(32, _pow2_at_least(width))
+    lanes = min(32, csr.pow2_at_least(width))
     col_blocks = -(-width // lanes)
     groups = b * m * col_blocks
     ahead, threads = CONSUME_SMALL if groups < SMALL_GROUPS else CONSUME_LARGE
-    return BackwardPlan(csr, vector, lanes, ahead, col_blocks, threads,
+    return BackwardPlan(sort, vector, lanes, ahead, col_blocks, threads,
                         -(-(b * m) // (threads // lanes)))
 
 
@@ -208,13 +167,13 @@ def interpolation_csr(idx: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Te
     if b * n == 0:
         return (torch.zeros(b * m + 1, dtype=torch.int32, device=idx.device),
                 torch.empty(0, dtype=torch.int32, device=idx.device))
-    csr = csr_plan(b, n, m)
+    sort = csr_plan(b, n, m)
     offsets = torch.empty(b * m + 1, dtype=torch.int32, device=idx.device)
     entries = torch.empty(3 * b * n, dtype=torch.int32, device=idx.device)
-    hist = torch.empty(csr.hist_ints, dtype=torch.int32, device=idx.device)
+    hist = torch.empty(sort.hist_ints, dtype=torch.int32, device=idx.device)
     launch("psa_interpolation_csr", idx.device, idx.data_ptr(), offsets.data_ptr(),
-           entries.data_ptr(), hist.data_ptr(), b, n, m, int(csr.variant == "fused"), csr.steps,
-           csr.warps, csr.smem_bytes)
+           entries.data_ptr(), hist.data_ptr(), b, n, m, int(sort.variant != "chunked"),
+           sort.steps, sort.warps, sort.smem_bytes)
     interpolation_csr.launches += 1
     return offsets, entries
 
@@ -241,11 +200,11 @@ def three_interpolate_backward(
     p = backward_plan(b, n, m, c, aligned(g, dp, *((points,) if need_dw else ())))
     # scratch lives until the call returns; the allocator reuses it in stream order
     scratch, pairs, offsets, hist, parts = backward_scratch(b, n, m, p, need_dw, g.device)
-    csr = p.csr
+    sort = p.csr
     launch("psa_three_interpolate_bwd", g.device, g.data_ptr(), idx.data_ptr(),
            weight.data_ptr(), points.data_ptr() if need_dw else None, dp.data_ptr(),
            dw.data_ptr() if need_dw else None, parts, offsets, pairs, hist, b, m, n, c,
-           int(csr.variant == "fused"), csr.steps, csr.warps, csr.smem_bytes, int(p.vector),
+           int(sort.variant != "chunked"), sort.steps, sort.warps, sort.smem_bytes, int(p.vector),
            p.lanes, p.ahead, p.col_blocks, p.threads)
     three_interpolate_backward.launches += 1
     return dp, dw

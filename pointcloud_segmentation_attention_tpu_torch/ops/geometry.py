@@ -158,7 +158,10 @@ def group_point_backward(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Te
     idx (B,M,K) -> dP (B,n,C), each row the sum of the g rows gathered from
     it, by ``index_add_`` over the flattened rows.  The oracle of
     ``csrc/group_gather_bwd.cu``; autograd on the CPU differentiates
-    ``group_point`` itself."""
+    ``group_point`` itself.  On the CPU, ``index_add_`` adds each row's g
+    rows from 0 in ascending flat slot (b*M + m)*K + k, and the kernel
+    matches that bit for bit; on the card it adds them with atomics in no
+    fixed order."""
     b, m, k, c = g.shape
     offset = torch.arange(b, device=g.device)[:, None] * n
     rows = (idx.reshape(b, m * k).long() + offset).reshape(-1)
@@ -187,18 +190,28 @@ def three_interpolate_backward(g: torch.Tensor, idx: torch.Tensor, weight: torch
     return dp.reshape(b, m, c), dw
 
 
-def interpolation_csr(idx: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The transpose of idx (B,N,3) as a CSR over the B*M known points: a
-    stable sort of the flat keys ``b*M + idx[b,n,k]``.  Returns offsets
-    (B*M + 1) and entries (3BN), int32: the entries of key b*M + t are the
-    flat indices ``b*3N + 3n + k`` with ``idx[b,n,k] == t``, ascending.  The
-    oracle of the CSR passes of ``csrc/three_interpolate_bwd.cu``."""
+def transpose_csr(idx: torch.Tensor, n_keys: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The transpose of idx (B, ...) with values in [0, n_keys) as a CSR over
+    the B*n_keys keys: a stable sort of the flat keys ``b*n_keys + idx[b, e]``,
+    e the flat index within a batch.  Returns offsets (B*n_keys + 1) and
+    entries (idx.numel()), int32: the entries of key b*n_keys + t are the flat
+    indices E of idx with ``idx[b, e] == t``, ascending.  The oracle of
+    ``csrc/csr.cuh``."""
     b = idx.shape[0]
-    keys = (idx.long() + torch.arange(b, device=idx.device)[:, None, None] * m).reshape(-1)
+    keys = (idx.reshape(b, -1).long()
+            + torch.arange(b, device=idx.device)[:, None] * n_keys).reshape(-1)
     entries = torch.sort(keys, stable=True).indices.to(torch.int32)
-    offsets = torch.zeros(b * m + 1, dtype=torch.int64, device=idx.device)
-    offsets[1:] = torch.bincount(keys, minlength=b * m).cumsum(0)
+    offsets = torch.zeros(b * n_keys + 1, dtype=torch.int64, device=idx.device)
+    offsets[1:] = torch.bincount(keys, minlength=b * n_keys).cumsum(0)
     return offsets.to(torch.int32), entries
+
+
+def interpolation_csr(idx: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``transpose_csr`` of the interpolation's idx (B,N,3) over the B*M known
+    points: the entries of key b*M + t are the flat indices ``b*3N + 3n + k``
+    with ``idx[b,n,k] == t``, ascending (the CSR of
+    ``csrc/three_interpolate_bwd.cu``)."""
+    return transpose_csr(idx, m)
 
 
 def interpolation_weights(dist: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:

@@ -1,24 +1,26 @@
-"""Device time of every launch plan of the ball-query, three-NN and
-interpolation kernels at the main path's levels, to choose the constants of
-their ``plan()``s.
+"""Device time of every launch plan of the ball-query, three-NN,
+interpolation and gather-backward kernels at the main path's levels, to
+choose the constants of their ``plan()``s.
 
     python -m pointcloud_segmentation_attention_tpu_torch.utils.plan_sweep [--only KERNEL ...]
 
 Builds the geometry of one B16 x 8192 forward (points uniform in a serving
-chunk's extent, FPS centres at SA1-4, the FP1-4 pairs of levels), then at
-each level launches ``csrc/ball_query.cu`` (SA1-4), ``csrc/three_nn.cu``,
-``csrc/three_interpolate.cu`` and ``csrc/three_interpolate_bwd.cu`` (FP1-4,
-the backward with and without dw) under every plan of the grids below,
-straight through ``ops/cuda/__init__.py:launch``.  Every result must be
-bit-identical to the plain version (the backward's dP to the plain version
-run on the CPU; its dw, whose sum order depends on the plan, within 1e-5).
+chunk's extent, FPS centres and ball-query idx at SA1-4, the FP1-4 pairs of
+levels), then at each level launches ``csrc/ball_query.cu`` (SA1-4),
+``csrc/group_gather_bwd.cu`` (SA2-4, whose inputs carry a gradient, and the
+large N of ``chip_smoke.py``: 2 x 4096 x 32 random idx into 33,024 rows,
+C 64), ``csrc/three_nn.cu``, ``csrc/three_interpolate.cu`` and
+``csrc/three_interpolate_bwd.cu`` (FP1-4, the backward with and without dw)
+under every plan of the grids below, straight through
+``ops/cuda/__init__.py:launch``.  Every result must be bit-identical to the
+plain version (both backwards' dP to the plain version run on the CPU; the
+interpolation's dw, whose sum order depends on the plan, within 1e-5).
 Each plan's device-only time is the profiler's kernel time over ``CALLS``
 back-to-back launches.  Prints one line per level with the plans ordered
 by time, the one ``plan()`` picks marked with ``*``, and writes the table
 to ``plan_sweep.json`` in ``trace_breakdown.OUT``, the directory the other
 measurement scripts write to.  ``--only`` names the kernels to sweep
-(ball_query, three_nn, three_interpolate, three_interpolate_bwd; default
-all).  Needs a CUDA card.
+(``KINDS``; default all).  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -36,6 +38,8 @@ from pointcloud_segmentation_attention_tpu_torch.models import sem_seg
 from pointcloud_segmentation_attention_tpu_torch.ops import cuda as kernels
 from pointcloud_segmentation_attention_tpu_torch.ops import geometry as plain
 from pointcloud_segmentation_attention_tpu_torch.ops.cuda import ball_query as bq
+from pointcloud_segmentation_attention_tpu_torch.ops.cuda import csr
+from pointcloud_segmentation_attention_tpu_torch.ops.cuda import group_gather as gg
 from pointcloud_segmentation_attention_tpu_torch.ops.cuda import three_interpolate as ti
 from pointcloud_segmentation_attention_tpu_torch.ops.cuda import three_nn as tn
 from pointcloud_segmentation_attention_tpu_torch.ops.geometry import radius_threshold
@@ -48,6 +52,7 @@ EXTENT = np.array([1.9, 1.9, 2.6], np.float32)
 BATCH, NPOINTS, CALLS = 16, 8192, 20
 THREADS = (32, 64, 128, 256)
 FP_CHANNELS = (512, 256, 256, 128)  # interpolated channels at FP1-4
+SA_CHANNELS = (9, 67, 131, 259)     # grouped channels at SA1-4 (3 + the features)
 
 
 def device_us(fn, repeats: int = 3) -> float:
@@ -165,17 +170,17 @@ def _bwd_csr_plans(b: int, n: int, m: int) -> list:
     """The CSR layouts the sweep tries: the plan's, the fused one where it
     fits, and chunks of 8-32 steps, 1-8 a block."""
     plans = {ti.csr_plan(b, n, m)}
-    most = min(ti.FUSED_WARPS, ti.SMEM_LIMIT // (4 * m))
+    most = min(csr.FUSED_WARPS, csr.SMEM_LIMIT // (4 * m))
     for steps in (1, 2, 4, 8, 16, 32, 128):
         warps = -(-3 * n // (32 * steps))
         if warps <= most:
-            plans.add(ti.CsrPlan("fused", steps, warps, warps, 4 * m * warps, 0))
+            plans.add(csr.CsrPlan("fused", steps, warps, warps, 4 * m * warps, 0))
     for steps in (8, 16, 32):
         chunks = -(-3 * n // (32 * steps))
-        for warps in ti.CSR_WARPS:
-            if warps <= chunks and 4 * m * warps <= ti.SMEM_LIMIT:
-                plans.add(ti.CsrPlan("chunked", steps, chunks, warps, 4 * m * warps,
-                                     b * chunks * (m + -(-m // ti.SCAN_TILE))))
+        for warps in csr.WARPS:
+            if warps <= chunks and 4 * m * warps <= csr.SMEM_LIMIT:
+                plans.add(csr.CsrPlan("chunked", steps, chunks, warps, 4 * m * warps,
+                                     b * chunks * (m + -(-m // csr.SCAN_TILE))))
     return sorted(plans)
 
 
@@ -204,7 +209,7 @@ def sweep_interpolate_bwd(points, idx, weight, need_dw: bool) -> list:
         args = (g.data_ptr(), idx.data_ptr(), weight.data_ptr(),
                 points.data_ptr() if need_dw else None, dp.data_ptr(),
                 dw.data_ptr() if need_dw else None, parts.data_ptr(), offsets, pairs, hist, b, m,
-                n, c, int(csr.variant == "fused"), csr.steps, csr.warps, csr.smem_bytes, 1,
+                n, c, int(csr.variant != "chunked"), csr.steps, csr.warps, csr.smem_bytes, 1,
                 chosen.lanes, ahead, chosen.col_blocks, threads)
 
         def fn(args=args):
@@ -223,6 +228,92 @@ def sweep_interpolate_bwd(points, idx, weight, need_dw: bool) -> list:
     return rows
 
 
+def _gather_csr_plans(b: int, n: int, m: int, k: int) -> list:
+    """The CSR layouts the gather sweep tries: the plan's; fused with 1-16
+    steps a chunk where a block's counters fit ``csr.SMEM_MAX``; chunked with
+    8-64 steps, 1-8 chunks a block, where a warp's counters fit
+    ``csr.SMEM_LIMIT``; tiled with 8-32 warps, the tile filling
+    ``csr.SMEM_LIMIT`` or ``csr.SMEM_MAX``, where N is beyond the chunked."""
+    e = m * k
+    plans = {gg.csr_plan(b, n, m, k)}
+    for steps in (1, 2, 4, 8, 16):
+        warps = -(-e // (32 * steps))
+        if warps <= csr.FUSED_WARPS and 4 * n * warps <= csr.SMEM_MAX:
+            plans.add(csr.CsrPlan("fused", steps, warps, warps, 4 * n * warps, 0))
+    for steps in (8, 16, 32, 64):
+        chunks = -(-e // (32 * steps))
+        for warps in csr.WARPS:
+            if warps <= chunks and 4 * n * warps <= csr.SMEM_LIMIT:
+                plans.add(csr.CsrPlan("chunked", steps, chunks, warps, 4 * n * warps,
+                                      b * chunks * (n + -(-n // csr.SCAN_TILE))))
+    if 4 * n > csr.SMEM_LIMIT:
+        for most in (8, 16, 32):
+            steps = -(-e // (32 * most))
+            warps = -(-e // (32 * steps))
+            for smem in (csr.SMEM_LIMIT, csr.SMEM_MAX):
+                tile = min(n, smem // (4 * warps))
+                plans.add(csr.CsrPlan("tiled", steps, warps, warps, 4 * tile * warps, 0))
+    return sorted(plans)
+
+
+def _gather_consumes(chosen: gg.BackwardPlan, b: int, n: int, m: int, k: int, c: int) -> list:
+    """The consuming passes the gather sweep tries under the plan's CSR:
+    every number of elements a lane (with ``AHEAD``'s rows a round), its
+    column blocks following, with windows of 8-32 places, 256 threads."""
+    width = c // 4 if chosen.vector else c
+    out = []
+    for per_lane, ahead in gg.AHEAD[chosen.vector].items():
+        col_blocks = -(-width // (chosen.lanes * per_lane))
+        if -(-width // (chosen.lanes * col_blocks)) != per_lane:
+            continue  # another number's split
+        for window in (8, 16, 32):
+            out.append(chosen._replace(
+                per_lane=per_lane, ahead=ahead, col_blocks=col_blocks, window=window,
+                blocks=gg.consume_blocks(b, n, m, k, window, chosen.lanes, chosen.threads)))
+    return out
+
+
+def sweep_gather_bwd(idx, n: int, c: int) -> list:
+    """The gather backward: every CSR layout of ``_gather_csr_plans`` under
+    the plan's consuming pass (also the CSR alone, ``csr_us``), then every
+    consuming pass of ``_gather_consumes`` under the plan's CSR."""
+    b, m, k = idx.shape
+    dev = idx.device
+    g = torch.randn(b, m, k, c, device=dev, generator=torch.Generator(dev).manual_seed(5))
+    want = plain.group_point_backward(g.cpu(), idx.cpu(), n)
+    chosen = gg.backward_plan(b, n, m, k, c, True)
+    dp = torch.empty((b, n, c), dtype=torch.float32, device=dev)
+    tried = [chosen._replace(csr=sort) for sort in _gather_csr_plans(b, n, m, k)]
+    tried += [p for p in _gather_consumes(chosen, b, n, m, k, c) if p != chosen]
+    rows = []
+    for p in tried:
+        sort = p.csr
+        scratch, entries, offsets, hist, first_key = gg.backward_scratch(b, n, m, k, p, dev)
+        fused = int(sort.variant != "chunked")
+        args = (g.data_ptr(), idx.data_ptr(), dp.data_ptr(), offsets, entries, hist, first_key,
+                b, n, c, m, k, fused, sort.steps, sort.warps, sort.smem_bytes, int(p.vector),
+                p.lanes, p.per_lane, p.ahead, p.col_blocks, p.threads, p.window)
+
+        def fn(args=args):
+            kernels.launch("psa_group_gather_bwd", dev, *args)
+
+        label = (f"{sort.variant}/S{sort.steps}/W{sort.warps}/{sort.smem_bytes // 1024}K "
+                 f"P{p.per_lane}x{p.col_blocks}/U{p.ahead}/S{p.window}/T{p.threads}")
+        dp.fill_(float("nan"))
+        fn()
+        if not torch.equal(dp.cpu(), want):
+            raise AssertionError(f"group_gather_bwd {label}: dP differs from the CPU")
+        row = dict(plan=label, us=device_us(fn), chosen=p == chosen)
+        if p.csr != chosen.csr or p == chosen:
+            csr_args = (idx.data_ptr(), offsets, entries, hist, b, n, m, k, fused, sort.steps,
+                        sort.warps, sort.smem_bytes)
+            row["csr_us"] = device_us(
+                lambda: kernels.launch("psa_group_gather_csr", dev, *csr_args))
+        rows.append(row)
+        del scratch
+    return rows
+
+
 def _print(kind: str, label: str, shape: str, rows: list) -> None:
     rows = sorted(rows, key=lambda r: r["us"])
     best = rows[0]["us"]
@@ -236,7 +327,8 @@ def _print(kind: str, label: str, shape: str, rows: list) -> None:
           f"fastest (plan = us): {cells}", flush=True)
 
 
-KINDS = ("ball_query", "three_nn", "three_interpolate", "three_interpolate_bwd")
+KINDS = ("ball_query", "group_gather_bwd", "three_nn", "three_interpolate",
+         "three_interpolate_bwd")
 
 
 def main() -> int:
@@ -258,8 +350,19 @@ def main() -> int:
             rows = sweep_ball_query(xyz, centres, sem_seg.SA_RADII[i], sem_seg.SA_NSAMPLE)
             _print("ball_query", label, f"N{xyz.shape[1]} M{npoint}", rows)
             out["ball_query"][label] = rows
+        if "group_gather_bwd" in kinds and i > 0:  # SA1's input carries no gradient
+            idx, _ = ops.ball_query(xyz, centres, sem_seg.SA_RADII[i], sem_seg.SA_NSAMPLE)
+            rows = sweep_gather_bwd(idx, xyz.shape[1], SA_CHANNELS[i])
+            _print("group_gather_bwd", label, f"N{xyz.shape[1]} M{npoint} C{SA_CHANNELS[i]}", rows)
+            out["group_gather_bwd"][label] = rows
         xyz = centres
         levels.append(xyz)
+    if "group_gather_bwd" in kinds:
+        n_big = (1 << 15) + 256
+        big_idx = torch.from_numpy(rng.randint(0, n_big, (2, 4096, 32)).astype(np.int32)).to(dev)
+        rows = sweep_gather_bwd(big_idx, n_big, 64)
+        _print("group_gather_bwd", "large N", f"N{n_big} M4096 C64", rows)
+        out["group_gather_bwd"]["large N"] = rows
     for i in range(4):
         label = f"FP{i + 1}"
         xyz1, xyz2 = levels[3 - i], levels[4 - i]

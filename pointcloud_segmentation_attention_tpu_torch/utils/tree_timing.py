@@ -3,10 +3,13 @@ two checkouts (a parent commit and a change) can be run in turns in one
 session on one card.
 
     python3 pointcloud_segmentation_attention_tpu_torch/utils/tree_timing.py TREE [--tag NAME]
+        [--model NAME [--layer-idx I]]
 
 Imports the package from the checkout at ``TREE``, not from the tree this
-file lives in, builds its kernels, and measures full-width
-``sem_seg_features`` with seeded weights (TF32 off):
+file lives in, builds its kernels, and measures a full-width registry model
+(``--model``, default ``sem_seg_features``; ``--layer-idx`` for
+``sem_seg_attention_single_layer``) with seeded weights (TF32 off), fed
+colors and normals where the model takes them, else xyz only:
 
 - ``forward_ms``: one B16 x 8192 eval forward, CUDA events around bursts of
   5, median of 20 bursts; ``forward_device_ms``: the device time of one
@@ -19,7 +22,11 @@ file lives in, builds its kernels, and measures full-width
   predict in B16 batches, stitch) after one warm-up room;
 - ``interp_levels``: at FP1-4 of one B16 x 8192 forward's geometry, the
   device ms of the interpolation kernel, of its backward with dw and
-  without (the train step's case), from the profiler over 10 calls each.
+  without (the train step's case), from the profiler over 10 calls each;
+- ``gather_levels``: at SA2-4 of the same geometry (ball-query idx, C
+  67/131/259) and at the large N of ``chip_smoke.py`` (2 x 4096 x 32 random
+  idx into 33,024 rows, C 64), the device ms of the gather backward, from
+  the profiler over 10 calls each.
 
 Prints one JSON line with the card's name and power limit.  Needs a CUDA
 card; it does not fall back to the CPU.
@@ -68,18 +75,33 @@ def _events_ms(fn, reps: int, burst: int) -> list:
     return out
 
 
-def _interp_levels(dev) -> dict:
+def _kernel_levels(dev) -> tuple:
+    """(interp_levels, gather_levels): the backward kernels' device ms per
+    level on one B16 x 8192 forward's geometry."""
     from pointcloud_segmentation_attention_tpu_torch import ops
     from pointcloud_segmentation_attention_tpu_torch.models import sem_seg
     from pointcloud_segmentation_attention_tpu_torch.ops import geometry as plain
+    from pointcloud_segmentation_attention_tpu_torch.ops.cuda import group_gather as gg
     from pointcloud_segmentation_attention_tpu_torch.ops.cuda import three_interpolate as ti
 
     rng = np.random.RandomState(0)
     gen = torch.Generator(dev).manual_seed(0)
     xyz = torch.from_numpy((rng.rand(BATCH, NPOINTS, 3) * EXTENT).astype(np.float32)).to(dev)
     levels = [xyz]
-    for npoint in sem_seg.SA_NPOINTS:
-        levels.append(plain.gather_point(levels[-1], ops.farthest_point_sample(levels[-1], npoint)))
+    gather = {}
+    for i, npoint in enumerate(sem_seg.SA_NPOINTS):
+        centres = plain.gather_point(levels[-1], ops.farthest_point_sample(levels[-1], npoint))
+        if i > 0:  # SA1's input carries no gradient
+            idx, _ = ops.ball_query(levels[-1], centres, sem_seg.SA_RADII[i], sem_seg.SA_NSAMPLE)
+            g = torch.randn(BATCH, npoint, sem_seg.SA_NSAMPLE, (67, 131, 259)[i - 1], device=dev,
+                            generator=gen)
+            n = levels[-1].shape[1]
+            gather[f"SA{i + 1}"] = _device_ms(lambda: gg.group_point_backward(g, idx, n), 10)
+        levels.append(centres)
+    n_big = (1 << 15) + 256
+    big_idx = torch.randint(0, n_big, (2, 4096, 32), device=dev, dtype=torch.int32, generator=gen)
+    g_big = torch.randn(2, 4096, 32, 64, device=dev, generator=gen)
+    gather["large N"] = _device_ms(lambda: gg.group_point_backward(g_big, big_idx, n_big), 10)
     out = {}
     for i, c in enumerate((512, 256, 256, 128)):
         xyz1, xyz2 = levels[3 - i], levels[4 - i]
@@ -93,13 +115,16 @@ def _interp_levels(dev) -> dict:
             "backward_dp": _device_ms(
                 lambda: ti.three_interpolate_backward(g, idx, w, p, need_dw=False), 10),
         }
-    return out
+    return out, gather
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("tree", help="root of the checkout whose package is measured")
     ap.add_argument("--tag", default=None)
+    ap.add_argument("--model", default="sem_seg_features", help="registry name")
+    ap.add_argument("--layer-idx", type=int, default=None,
+                    help="the attention level of sem_seg_attention_single_layer")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("tree_timing measures the card; CUDA is not available")
@@ -128,12 +153,19 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     kernels.build()
-    res = {"tag": args.tag or args.tree, "package": os.path.dirname(kernels.CSRC)}
+    res = {"tag": args.tag or args.tree, "package": os.path.dirname(kernels.CSRC),
+           "model": args.model}
+    kw = {} if args.layer_idx is None else {"layer_idx": args.layer_idx}
 
-    model = models.seeded_model("sem_seg_features", seed=0, device=dev)
+    def seeded():
+        return models.seeded_model(args.model, seed=0, device=dev, **kw)
+
+    model = seeded()
+    use_feats = model.in_features > 0
     rng = np.random.RandomState(2)
     pts = torch.from_numpy((rng.rand(BATCH, NPOINTS, 3) * EXTENT).astype(np.float32)).to(dev)
-    feats = torch.from_numpy(rng.rand(BATCH, NPOINTS, 6).astype(np.float32)).to(dev)
+    feats = (torch.from_numpy(rng.rand(BATCH, NPOINTS, 6).astype(np.float32)).to(dev)
+             if use_feats else None)
 
     def forward():
         return seg_predict_step(model, pts, feats)
@@ -144,11 +176,12 @@ def main() -> int:
 
     scenes = [make_synthetic_scene(150_000, seed=100 + s) for s in range(2)]
     predict = make_predict_fn(model, device=dev)
-    predict_scene_chunks(predict, scene_chunks(scenes[0], NPOINTS, seed=0), True, True, BATCH)
+    predict_scene_chunks(predict, scene_chunks(scenes[0], NPOINTS, seed=0), use_feats, use_feats,
+                         BATCH)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    labels = predict_scene_chunks(predict, scene_chunks(scenes[1], NPOINTS, seed=0), True, True,
-                                  BATCH)
+    labels = predict_scene_chunks(predict, scene_chunks(scenes[1], NPOINTS, seed=0), use_feats,
+                                  use_feats, BATCH)
     torch.cuda.synchronize()
     res["serve_points_per_s"] = len(labels) / (time.perf_counter() - t0)
 
@@ -163,8 +196,8 @@ def main() -> int:
                                                       sc["normals"], NPOINTS, brng)
             chunks.append({"points": p, "labels": lab, "colors": col, "normals": nrm,
                            "weights": w})
-        batches.append(make_batch(chunks, True, True, "f32"))
-    state = TrainState(models.seeded_model("sem_seg_features", seed=0, device=dev))
+        batches.append(make_batch(chunks, use_feats, use_feats, "f32"))
+    state = TrainState(seeded())
     for b in batches[:3]:
         seg_train_step(state, b)
     steps = iter(batches[3:])
@@ -174,7 +207,7 @@ def main() -> int:
     # Profiled last: a process that has run the profiler may launch more slowly.
     res["forward_device_ms"] = _device_ms(forward, 5)
     res["step_device_ms"] = _device_ms(lambda: seg_train_step(state, batches[3]), 3)
-    res["interp_levels"] = _interp_levels(dev)
+    res["interp_levels"], res["gather_levels"] = _kernel_levels(dev)
     res["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                   "--format=csv,noheader"], capture_output=True, text=True,
                                  check=True).stdout.strip().splitlines()[0]

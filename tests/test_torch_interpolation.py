@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from pointcloud_segmentation_attention_tpu_torch.ops import geometry as tgeo
+from pointcloud_segmentation_attention_tpu_torch.ops.cuda import csr
 from pointcloud_segmentation_attention_tpu_torch.ops.cuda import three_interpolate as ti
 
 # The main path at B16: FP1-4 as (N unknown, M known, C channels).
@@ -149,15 +150,19 @@ def test_csr_plan_covers_every_entry(n, m):
         p = ti.csr_plan(b, n, m)
         per_chunk = 32 * p.steps
         assert p.chunks * per_chunk >= 3 * n > (p.chunks - 1) * per_chunk
-        assert p.smem_bytes <= ti.SMEM_LIMIT
         if p.variant == "fused":
-            assert p.warps == p.chunks <= ti.FUSED_WARPS and p.steps <= ti.FUSED_MAX_STEPS
-            assert p.smem_bytes == 4 * m * p.warps and p.hist_ints == 0
+            assert p.warps == p.chunks <= csr.FUSED_WARPS and p.steps <= csr.FUSED_MAX_STEPS
+            assert p.smem_bytes == 4 * m * p.warps <= csr.SMEM_LIMIT and p.hist_ints == 0
+        elif p.variant == "chunked":
+            assert 1 <= p.warps <= max(csr.WARPS)
+            assert p.hist_ints == b * p.chunks * (m + -(-m // csr.SCAN_TILE))
+            # Counters in shared memory while a warp's M ints fit.
+            assert p.smem_bytes == 4 * m * p.warps <= csr.SMEM_LIMIT
         else:
-            assert p.variant == "chunked" and 1 <= p.warps <= max(ti.CSR_WARPS)
-            assert p.hist_ints == b * p.chunks * (m + -(-m // ti.SCAN_TILE))
-            # Counters in shared memory while a warp's M ints fit, else in the histogram.
-            assert p.smem_bytes == (4 * m * p.warps if 4 * m <= ti.SMEM_LIMIT else 0)
+            # Beyond that, tiled: a block per tile of keys, its counters within SMEM_MAX.
+            assert p.variant == "tiled" and 4 * m > csr.SMEM_LIMIT and p.hist_ints == 0
+            assert p.warps == p.chunks <= csr.FUSED_WARPS
+            assert p.smem_bytes == 4 * p.key_tile * p.warps <= csr.SMEM_MAX
 
 
 @pytest.mark.parametrize("c, is_aligned, vector, lanes, col_blocks", [

@@ -229,7 +229,7 @@ def test_launch_resolves_each_entry_point_once(stub_library, monkeypatch):
             cuda.launch(name, dev, 1, 2)
         monkeypatch.setattr(cuda, "_lock", _NoLock())  # loaded: no lock from here on
     (lib,) = stub_library.libs
-    assert set(cuda._SIGNATURES) == set(lib.lookups) and len(lib.lookups) == 9
+    assert set(cuda._SIGNATURES) == set(lib.lookups) and len(lib.lookups) == 10
     assert lib.lookups == {name: 1 for name in cuda._SIGNATURES}
     for name, argtypes in cuda._SIGNATURES.items():
         fn = lib._fns[name]
@@ -346,7 +346,7 @@ def test_interpolation_csr_wrapper_passes_its_plan(cpu_wrappers, b, n, m):
     p = ti.csr_plan(b, n, m)
     assert call[:3] == (idx.data_ptr(), offsets.data_ptr(), entries.data_ptr())
     assert isinstance(call[3], int)  # the histograms' scratch
-    assert call[4:] == (b, n, m, int(p.variant == "fused"), p.steps, p.warps, p.smem_bytes,
+    assert call[4:] == (b, n, m, int(p.variant != "chunked"), p.steps, p.warps, p.smem_bytes,
                         0xBEEF)
     assert len(call) == len(cuda._SIGNATURES["psa_interpolation_csr"])
     assert ti.interpolation_csr.launches == 1
@@ -370,7 +370,7 @@ def test_three_interpolate_backward_wrapper_passes_its_plan(cpu_wrappers, b, n, 
     assert (call[6] is None) == (not need_dw or p.col_blocks == 1)
     assert all(isinstance(ptr, int) for ptr in call[7:10])  # offsets, pairs, histograms
     csr = p.csr
-    assert call[10:] == (b, m, n, c, int(csr.variant == "fused"), csr.steps, csr.warps,
+    assert call[10:] == (b, m, n, c, int(csr.variant != "chunked"), csr.steps, csr.warps,
                          csr.smem_bytes, int(p.vector), p.lanes, p.ahead, p.col_blocks,
                          p.threads, 0xBEEF)
     assert len(call) == len(cuda._SIGNATURES["psa_three_interpolate_bwd"])

@@ -149,10 +149,10 @@ def test_bridge_round_trip_and_key_checks(tmp_path):
 
 def test_unported_names_and_poolings_raise():
     with pytest.raises(KeyError):
-        tmodels.get_model("sem_seg_attention", device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
+        tmodels.get_model("cls_ssg", device="cpu")
+    with pytest.raises(ValueError, match="unknown pooling"):
         tmodels.get_model("sem_seg_features", device="cpu",
-                          sa_pooling=("attention",) * 4)
+                          sa_pooling=("max", "median", "max", "max"))
 
 
 def test_entry_points_default_to_cuda():

@@ -347,31 +347,39 @@ def _capture():
         lambda updates, state, params=None: (updates, updates))
 
 
-def _batch(scene, b, npoints, seed):
+def _batch(scene, b, npoints, seed, features=True):
+    """A batch of random chunks, with colors and normals or (``features``
+    False) xyz only."""
     chunks = _random_chunks(tchunks, scene, np.random.RandomState(seed), b, npoints)
-    return tpipeline.make_batch(chunks, True, True, "f32")
+    return tpipeline.make_batch(chunks, features, features, "f32")
 
 
-def _pair(kwargs, batch, capture, seed=0):
-    """(jax state, port state) with the same seeded weights, dropout off."""
-    jm = jmodels.get_model("sem_seg_features", num_classes=21, dropout_rate=0.0, **kwargs)
+def _pair(kwargs, batch, capture, seed=0, name="sem_seg_features"):
+    """(jax state, port state) of registry model ``name`` with the same
+    seeded weights, dropout off."""
+    jm = jmodels.get_model(name, num_classes=21, dropout_rate=0.0, **kwargs)
     adam = optax.adam(jsched.scannet_learning_rate)
     tx = optax.chain(_capture(), adam) if capture else adam
+    feats = batch.get("features")
     state = create_state(jm, tx, jax.random.PRNGKey(seed), jnp.asarray(batch["points"][:1]),
-                         jnp.asarray(batch["features"][:1]), train=False)
+                         None if feats is None else jnp.asarray(feats[:1]), train=False)
     flat = _flat_variables({"params": state.params, "batch_stats": state.batch_stats}, seed + 1)
     params = _unflatten({k[7:]: v for k, v in flat.items() if k.startswith("params/")})
     stats = _unflatten({k[12:]: v for k, v in flat.items() if k.startswith("batch_stats/")})
     jstate = state.replace(params=params, batch_stats=stats, opt_state=tx.init(params))
-    tm = tmodels.get_model("sem_seg_features", device="cpu", dropout_rate=0.0, **kwargs)
+    tm = tmodels.get_model(name, device="cpu", dropout_rate=0.0, **kwargs)
     load_jax_variables(flat, tm)
     return jstate, TrainState(tm)
 
 
 def _noise_biases(model):
-    """Names of the biases feeding a train-mode BN: their exact gradient is 0."""
+    """Names of the biases whose exact gradient is 0: those of convolutions
+    feeding a train-mode BN, and the affine bias of an attention pooling's
+    BN (a constant shift of a channel that reaches the loss only through
+    convolutions followed by a train-mode BN)."""
     return {name + ".bias" for name, mod in model.named_modules()
-            if isinstance(mod, PointConv) and mod.bn is not None}
+            if (isinstance(mod, PointConv) and mod.bn is not None)
+            or name.endswith("attention_bn")}
 
 
 def _jax_flat(jstate, adam) -> dict:
@@ -431,12 +439,20 @@ def _check_step(before, after, jm, grads, tstate, tm, lr, grad_rel):
     ("full", 1, 2048, 1, 3e-2),  # registry widths: npoint 1024/256/64/16, nsample 32
 ])
 def test_seg_train_step_matches_jax(scene, config, b, npoints, steps, grad_rel):
-    """``steps`` steps; before each, the port takes the JAX state through the
-    checkpoint bridge, so every step starts from the same state (Adam's
-    counts and the schedules advance with it)."""
     kwargs = TINY if config == "tiny" else {}
-    batches = [_batch(scene, b, npoints, seed=30 + s) for s in range(steps)]
-    jstate, tstate = _pair(kwargs, batches[0], capture=True)
+    tstate = train_steps_match_jax(scene, "sem_seg_features", kwargs, b, npoints, steps,
+                                   grad_rel)
+    with pytest.raises(NotImplementedError, match="remat"):
+        seg_train_step(tstate, _batch(scene, b, npoints, seed=30), remat="full")
+
+
+def train_steps_match_jax(scene, name, kwargs, b, npoints, steps, grad_rel, features=True):
+    """``steps`` steps of registry model ``name``, each held to the JAX step
+    by ``_check_step``; before each, the port takes the JAX state through
+    the checkpoint bridge, so every step starts from the same state (Adam's
+    counts and the schedules advance with it).  Returns the port's state."""
+    batches = [_batch(scene, b, npoints, seed=30 + s, features=features) for s in range(steps)]
+    jstate, tstate = _pair(kwargs, batches[0], capture=True, name=name)
     jstep = jax.jit(jsteps.seg_train_step)
     for s, batch in enumerate(batches):
         before = _jax_flat(jstate, jstate.opt_state[1])
@@ -450,8 +466,7 @@ def test_seg_train_step_matches_jax(scene, config, b, npoints, steps, grad_rel):
                     tstate, tm, tsched.scannet_learning_rate(s), grad_rel)
         np.testing.assert_array_equal(tm["confusion"].sum(1).numpy(),
                                       np.asarray(jm["confusion"]).sum(1))
-    with pytest.raises(NotImplementedError, match="remat"):
-        seg_train_step(tstate, batches[0], remat="full")
+    return tstate
 
 
 def test_seg_eval_step_matches_jax(scene):
@@ -536,14 +551,15 @@ def test_cuda_autograd_through_kernels_matches_plain(cuda_device, rng):
         three_interpolate,
     )
 
-    torch.testing.assert_close(group_gather.group_point_backward(g, idx, 2048),
-                               tgeo.group_point_backward(g, idx, 2048), **BWD_TOL)
+    # Both backwards' dP sum in the CPU's index_add_ order: bit-identical to CPU copies.
+    torch.testing.assert_close(group_gather.group_point_backward(g, idx, 2048).cpu(),
+                               tgeo.group_point_backward(g.cpu(), idx.cpu(), 2048),
+                               rtol=0, atol=0)
     dist, nidx = tops.three_nn(xyz, centres)
     w = tgeo.interpolation_weights(dist)
     feats = torch.randn(2, 256, 128, device=cuda_device)
     g = torch.randn(2, 2048, 128, device=cuda_device)
     dp, dw = three_interpolate.three_interpolate_backward(g, nidx, w, feats)
-    # dP sums in the CPU's index_add_ order: bit-identical to CPU copies.
     pdp, pdw = tgeo.three_interpolate_backward(g.cpu(), nidx.cpu(), w.cpu(), feats.cpu())
     torch.testing.assert_close(dp.cpu(), pdp, rtol=0, atol=0)
     torch.testing.assert_close(dw.cpu(), pdw, **BWD_TOL)
