@@ -28,6 +28,21 @@ Phases (each raises on failure; the script then exits non-zero):
                    counters zeroed just before the timed steps and read just
                    after: all seven kernels launched; every loss finite; five
                    steps on one batch bring its loss below the first.
+   trainer      -- the port's workflow through its entry points
+                   (``phase_trainer``): a synthetic store of 32 + 2 rooms of
+                   150k points, ``precompute_cli`` (2 train epochs, val) and
+                   the q16 pack store, timed; ``trainer.train`` at B16 x 8192
+                   for 3 epochs of 2 steps with validation every epoch, once
+                   with ``input='npz'`` and once with ``input='packed'``
+                   (``packed_q16``): launch counters zeroed just before and
+                   read just after each run, all seven kernels launched,
+                   every logged loss finite, the step count as configured,
+                   the best checkpoint restoring bit for bit; then
+                   ``generate_predictions`` over the val rooms from that
+                   checkpoint as f32, packed f32 (equal to the f32 path on
+                   the values the record carries) and packed q16 rows,
+                   ``benchmark.evaluate`` equal to the in-memory mIoU, and a
+                   crop of one room on the card and the CPU (>= 99.9 %).
    The attention slice (``ATTENTION_MODELS``, fed xyz only, as the
    reference's attention ablation ran them):
    attention-model -- ``sem_seg_attention``, ``sem_seg_attention_single_layer``
@@ -78,7 +93,8 @@ Phases (each raises on failure; the script then exits non-zero):
                    phases come after the end-to-end ones so that their
                    inputs, which phase 9 reuses, do not count in the serve
                    and train windows' peak memory.
-10. report      -- one line per kernel, a ``{"kernels": [...]}`` JSON line, the
+10. report      -- one line per kernel (with its launches in each trainer
+                   run), a ``{"kernels": [...]}`` JSON line, the
                    card's name and power limit, and the final
                    ``{"ok": true, "device": {...}}`` line.
 
@@ -91,8 +107,10 @@ import copy
 import functools
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -108,9 +126,22 @@ from pointcloud_segmentation_attention_tpu_torch.data.scannet.chunks import (  #
     sample_random_chunk,
 )
 from pointcloud_segmentation_attention_tpu_torch.data.scannet.scenes import (  # noqa: E402
+    load_scene_mapped,
     make_synthetic_scene,
+    write_synthetic_dataset,
 )
+from pointcloud_segmentation_attention_tpu_torch.data.scannet import (  # noqa: E402
+    packstore,
+    precompute,
+    precompute_cli,
+)
+from pointcloud_segmentation_attention_tpu_torch.data.scannet.label_map import (  # noqa: E402
+    map_to_nyu40,
+)
+from pointcloud_segmentation_attention_tpu_torch.data.wire import WireSpec  # noqa: E402
+from pointcloud_segmentation_attention_tpu_torch.eval import benchmark  # noqa: E402
 from pointcloud_segmentation_attention_tpu_torch.eval.full_scene import (  # noqa: E402
+    generate_predictions,
     make_predict_fn,
     predict_scene_chunks,
     scene_chunks,
@@ -131,10 +162,17 @@ from pointcloud_segmentation_attention_tpu_torch.ops.cuda import (  # noqa: E402
 )
 from pointcloud_segmentation_attention_tpu_torch.train import (  # noqa: E402
     TrainState,
+    best_checkpoint,
+    export_jax_state,
     losses,
+    restore_checkpoint,
     schedules,
     seg_train_step,
 )
+from pointcloud_segmentation_attention_tpu_torch.train import steps as train_steps  # noqa: E402
+from pointcloud_segmentation_attention_tpu_torch.train import trainer  # noqa: E402
+from pointcloud_segmentation_attention_tpu_torch.utils.config import TrainConfig  # noqa: E402
+from pointcloud_segmentation_attention_tpu_torch.utils.logging import read_metrics  # noqa: E402
 from pointcloud_segmentation_attention_tpu_torch.nn import PointConv  # noqa: E402
 from pointcloud_segmentation_attention_tpu_torch.utils.trace_breakdown import (  # noqa: E402
     device_breakdown,
@@ -1328,6 +1366,304 @@ def phase_train(dev, batches, steps: int, warmup: int, name: str = "sem_seg_feat
     log(f"[{tag}] launches in the {tag} window: {json.dumps(launches)}")
     return res
 
+# ---- the trainer entry point, end to end -------------------------------------------
+
+TRAINER_RUNS = (("npz", dict(input="npz")),
+                ("packed_q16", dict(input="packed", wire_format="packed_q16")))
+
+
+@contextlib.contextmanager
+def timed_train_steps(events: list, host_ms: list):
+    """CUDA events around every ``seg_train_step`` that ``trainer.train``
+    calls, appended to ``events``, and the host milliseconds each call took
+    to queue its work, appended to ``host_ms`` (no host sync is added)."""
+    inner = train_steps.seg_train_step
+
+    def timed(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = inner(*args, **kwargs)
+        end.record()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        events.append((start, end))
+        return out
+
+    train_steps.seg_train_step = timed
+    try:
+        yield
+    finally:
+        train_steps.seg_train_step = inner
+
+
+def nyu40_miou(preds, gts) -> float:
+    """The benchmark's mean IoU computed from in-memory [0, 20] labels in
+    NYU40 space: predictions mapped as the txt export maps them, ground
+    truth with unannotated points left out."""
+    valid = benchmark.VALID_CLASS_IDS
+    conf = np.zeros((41, 41), np.int64)
+    for pred, gt in zip(preds, gts):
+        g = map_to_nyu40(gt)
+        p = benchmark.map_to_nyu40_for_benchmark(pred)
+        keep = np.isin(g, valid)
+        np.add.at(conf, (g[keep], p[keep]), 1)
+    ious = []
+    for c in valid:
+        tp = conf[c, c]
+        denom = conf[c].sum() + conf[valid, c].sum() - tp
+        if denom:
+            ious.append(tp / denom)
+    return float(np.mean(ious))
+
+
+def _check_restores(dev, cfg: TrainConfig, tag: str, best) -> None:
+    """The best checkpoint exists and restores bit for bit into a fresh
+    ``make_eval_state``."""
+    if best is None:
+        raise AssertionError(f"trainer {tag}: no best_* checkpoint in {cfg.ckpt_dir}")
+    fresh = trainer.make_eval_state(cfg, device=dev)
+    restore_checkpoint(best, fresh)
+    with np.load(best) as z:
+        saved = {k: z[k] for k in z.files}
+    again = export_jax_state(fresh)
+    if sorted(again) != sorted(saved) or any(
+            again[k].dtype != saved[k].dtype or again[k].tobytes() != saved[k].tobytes()
+            for k in saved):
+        raise AssertionError(f"trainer {tag}: {best} does not restore bit for bit")
+
+
+def _train_run(dev, cfg: TrainConfig, tag: str, expect_steps: int) -> dict:
+    """One ``trainer.train`` run on the card, its launch counters zeroed just
+    before and read just after; every kernel must launch, every logged loss
+    be finite, the step count be ``expect_steps``, and, where it validated,
+    the best checkpoint restore bit for bit into a fresh ``make_eval_state``."""
+    events: list = []
+    host_ms: list = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with timed_train_steps(events, host_ms):
+        summary = trainer.train(cfg, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    missing = [k for k in KERNEL_INFO if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"trainer {tag}: never launched {missing}")
+    if summary["final_step"] != expect_steps:
+        raise AssertionError(f"trainer {tag}: final_step {summary['final_step']} != "
+                             f"{expect_steps}")
+    records = read_metrics(os.path.join(cfg.log_dir, "train_metrics.jsonl"))
+    epochs = [r for r in records if "train_loss" in r]
+    vals = [r for r in records if "val_miou" in r]
+    losses_ = [r["train_loss"] for r in epochs] + [r["val_loss"] for r in vals]
+    if (len(epochs) != cfg.epochs or len(vals) != cfg.epochs // cfg.n_epochs_to_val
+            or not np.all(np.isfinite(losses_))):
+        raise AssertionError(f"trainer {tag}: logged {len(epochs)} epochs, {len(vals)} "
+                             f"validations, losses {losses_}")
+    best = best_checkpoint(cfg.ckpt_dir, "best")
+    if vals:
+        _check_restores(dev, cfg, tag, best)
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    res = dict(
+        input=tag, wall_s=wall, summary=summary, launches=launches,
+        launches_per_step={k: v / expect_steps for k, v in launches.items()},
+        step_ms=step_ms, step_ms_median=float(np.median(step_ms)),
+        step_host_ms=host_ms, step_host_ms_median=float(np.median(host_ms)), peak_bytes=peak,
+        points_per_s=[r["points_per_sec"] for r in epochs],
+        epoch_s=[r["epoch_s"] for r in epochs],
+        input_wait_share=[r["input_wait_s"] / r["epoch_s"] for r in epochs],
+        train_loss=[r["train_loss"] for r in epochs],
+        val_miou=[r["val_miou"] for r in vals], val_loss=[r["val_loss"] for r in vals],
+        best_checkpoint=best and os.path.basename(best))
+    log(f"[trainer] {tag}: {summary['final_step']} steps, {cfg.epochs} epochs, "
+        f"{len(vals)} validations, "
+        f"{wall:.2f} s wall; points/s per epoch (the trainer's, host pipeline included) "
+        f"{' '.join(f'{v:.0f}' for v in res['points_per_s'])}; median step "
+        f"{res['step_ms_median']:.3f} ms (CUDA events), its host call "
+        f"{res['step_host_ms_median']:.3f} ms; waiting on the next batch "
+        f"{' '.join(f'{v:.3f}' for v in res['input_wait_share'])} of each epoch; "
+        f"max_memory_allocated {peak / 2**20:.1f} MiB; train loss "
+        f"{' '.join(f'{v:.3f}' for v in res['train_loss'])}, val mIoU "
+        f"{' '.join(f'{v:.4f}' for v in res['val_miou'])}"
+        + (f"; {os.path.basename(best)} restores bit for bit" if vals else ""))
+    log(f"[trainer] {tag}: launches in the trainer window: {json.dumps(launches)}")
+    return res
+
+
+def host_batch_ms(pre: str, names, batch: int, npoints: int, count: int = 8) -> dict:
+    """Host milliseconds a batch of the two replays, run alone on the main
+    thread: loading ``batch`` npz chunks, ``make_batch`` of them (f32), and
+    one batch of the q16 pack store (its copy out of the memory map)."""
+    replay = precompute.replay_train_chunks(pre, 2, names, shuffle_seed=0)
+    t_load = t_make = 0.0
+    for _ in range(count):
+        t0 = time.perf_counter()
+        chunks = [next(replay) for _ in range(batch)]
+        t1 = time.perf_counter()
+        make_batch(chunks, True, True, "f32")
+        t_load, t_make = t_load + t1 - t0, t_make + time.perf_counter() - t1
+    reader = packstore.PackReader(os.path.join(pre, f"pack_q16_c1n1_p{npoints}"))
+    rows = reader.replay_batches(batch, shuffle_seed=0)
+    t0 = time.perf_counter()
+    for _ in range(count):
+        next(rows)
+    t_pack = time.perf_counter() - t0
+    return dict(npz_load=t_load * 1e3 / count, npz_make_batch=t_make * 1e3 / count,
+                pack_q16=t_pack * 1e3 / count)
+
+
+def _serve(model, dev, root, names, out_dir, npoints: int, batch: int, spec=None):
+    """``generate_predictions`` over ``names``: per-scene labels, ground
+    truth, the txt files and points/s."""
+    predict = make_predict_fn(model, device=dev, wire_spec=spec)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = list(generate_predictions(predict, root, names, out_dir, npoints=npoints,
+                                        batch_size=batch, wire_spec=spec))
+    wall = time.perf_counter() - t0
+    n = sum(len(r["predictions"]) for r in results)
+    return results, dict(points=n, wall_s=wall, points_per_s=n / wall)
+
+
+def phase_trainer(dev, n_train: int = 32, n_val: int = 2, scene_points: int = 150_000,
+                  epochs: int = 3, batch: int = 16, npoints: int = 8192,
+                  cpu_crop: float = 2.0, steady_epochs: int = 10) -> dict:
+    """The port's workflow through its entry points, at full width:
+
+    - a synthetic store (``write_synthetic_dataset``: ``n_train`` + ``n_val``
+      rooms of ``scene_points``), ``precompute_cli`` for two train epochs
+      and the val set, and the q16 pack store, all timed;
+    - ``trainer.train`` (``sem_seg_features``, B16 x 8192, f32, TF32 off,
+      validation every epoch) twice, ``input='npz'`` and
+      ``input='packed'`` with ``wire_format='packed_q16'`` (``_train_run``);
+      then both again for ``steady_epochs`` epochs without validation, the
+      rate once the prefetch queue has drained;
+    - from the npz run's best checkpoint, ``generate_predictions`` over the
+      val rooms as f32 arrays, packed f32 and packed q16 rows.  Packed-f32
+      labels must equal the f32 path fed the values the record carries
+      (normals through f16) vertex for vertex; their agreement with the
+      plain f32 path and q16's are reported.  The ground truth exported with
+      ``export_ids`` and ``benchmark.evaluate`` over the f32 txt files:
+      ``mean_iou`` equal to ``nyu40_miou`` of the in-memory labels;
+    - the part of one val room with x < ``cpu_crop`` m predicted on the card
+      and on the CPU from the same checkpoint: >= 99.9 % of labels agree."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    work = tempfile.mkdtemp(prefix=".trainer_smoke_", dir=ROOT)
+    try:
+        root, pre = os.path.join(work, "scannet"), os.path.join(work, "chunks")
+        secs = {}
+        t0 = time.perf_counter()
+        splits = write_synthetic_dataset(root, n_train=n_train, n_val=n_val,
+                                         n_points=scene_points, seed=300)
+        secs["write_dataset"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        precompute_cli.main(["--data_root", root, "--out_dir", pre, "--epochs", "2",
+                             "--npoints", str(npoints)])
+        secs["precompute_train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        precompute_cli.main(["--data_root", root, "--out_dir", pre, "--split", "val",
+                             "--npoints", str(npoints)])
+        secs["precompute_val"] = time.perf_counter() - t0
+        q16 = WireSpec(npoints, "q16")
+        t0 = time.perf_counter()
+        rows = packstore.write_pack_from_npz(pre, os.path.join(pre, f"pack_q16_c1n1_p{npoints}"),
+                                             2, splits["train"], q16)
+        secs["pack_q16"] = time.perf_counter() - t0
+        log(f"[trainer] store of {n_train} + {n_val} rooms of {scene_points} points written in "
+            f"{secs['write_dataset']:.2f} s; precompute_cli: 2 train epochs "
+            f"{secs['precompute_train']:.2f} s, val {secs['precompute_val']:.2f} s; q16 pack "
+            f"store ({rows} rows) {secs['pack_q16']:.2f} s")
+
+        host_ms = host_batch_ms(pre, splits["train"], batch, npoints)
+        log(f"[trainer] host work a batch, alone on the main thread: npz replay "
+            f"{host_ms['npz_load']:.2f} ms (16 np.load) + make_batch "
+            f"{host_ms['npz_make_batch']:.2f} ms; q16 pack replay "
+            f"{host_ms['pack_q16']:.2f} ms")
+
+        base = dict(data_root=root, precompute_dir=pre, batch_size=batch, n_points=npoints,
+                    epochs=epochs, n_epochs_to_val=1, save_every_epochs=1, n_devices=1)
+        steps = epochs * (n_train // batch)
+        runs, cfgs = {}, {}
+        for tag, over in TRAINER_RUNS:
+            cfgs[tag] = TrainConfig(**base, **over, log_dir=os.path.join(work, "logs_" + tag))
+            runs[tag] = _train_run(dev, cfgs[tag], tag, steps)
+        # The same replays past the prefetch queue's depth (4 batches, which
+        # validation refills between the short epochs above): no validation,
+        # no checkpoints, steady_epochs epochs.
+        steady = {}
+        for tag, over in TRAINER_RUNS:
+            cfg = TrainConfig(**{**base, "epochs": steady_epochs, "n_epochs_to_val": 10**6,
+                                 "save_every_epochs": 0}, **over,
+                              log_dir=os.path.join(work, "steady_" + tag))
+            steady[tag] = _train_run(dev, cfg, tag + " steady",
+                                     steady_epochs * (n_train // batch))
+
+        state = trainer.make_eval_state(cfgs["npz"], device=dev)
+        restore_checkpoint(best_checkpoint(cfgs["npz"].ckpt_dir, "best"), state)
+        model = state.model
+        names = splits["val"]
+        out = os.path.join(work, "predictions")
+        f32, serve = _serve(model, dev, root, names, os.path.join(out, "f32"), npoints, batch)
+        packed, serve_packed = _serve(model, dev, root, names, os.path.join(out, "packed"),
+                                      npoints, batch, WireSpec(npoints, "f32"))
+        quant, serve_q16 = _serve(model, dev, root, names, os.path.join(out, "q16"), npoints,
+                                  batch, q16)
+        predict = make_predict_fn(model, device=dev)
+        agree_packed, agree_q16 = [], []
+        for scene, a, b, c in zip(precompute.eval_scene_stream(root, names, npoints=npoints),
+                                  f32, packed, quant):
+            scene["normals"] = scene["normals"].astype(np.float16).astype(np.float32)
+            same_values = predict_scene_chunks(predict, scene, True, True, batch)
+            if not np.array_equal(b["predictions"], same_values):
+                bad = int((b["predictions"] != same_values).sum())
+                raise AssertionError(f"trainer serve: packed-f32 labels differ from the f32 "
+                                     f"path on the same values at {bad} vertices")
+            agree_packed.append(float((b["predictions"] == a["predictions"]).mean()))
+            agree_q16.append(float((c["predictions"] == a["predictions"]).mean()))
+
+        gt_files = []
+        for r in f32:
+            gt_files.append(os.path.join(out, f"{r['scene_name']}_gt.txt"))
+            benchmark.export_ids(gt_files[-1], map_to_nyu40(r["labels"]))
+        scores = benchmark.evaluate([os.path.join(out, "f32", f"{n}.txt") for n in names],
+                                    gt_files, os.path.join(out, "results.txt"))
+        direct = nyu40_miou([r["predictions"] for r in f32], [r["labels"] for r in f32])
+        if not abs(scores["mean_iou"] - direct) <= 1e-12 * max(1.0, abs(direct)):
+            raise AssertionError(f"evaluate mean_iou {scores['mean_iou']} != in-memory {direct}")
+
+        room = load_scene_mapped(root, names[0])
+        keep = room["points"][:, 0] < cpu_crop
+        crop = scene_chunks({k: v[keep] for k, v in room.items()}, npoints)
+        on_card = predict_scene_chunks(predict, crop, True, True, batch)
+        cpu_model = copy.deepcopy(model).cpu()
+        t0 = time.perf_counter()
+        on_cpu = predict_scene_chunks(make_predict_fn(cpu_model, device="cpu"), crop, True,
+                                      True, batch)
+        t_cpu = time.perf_counter() - t0
+        agree_cpu = float((on_card == on_cpu).mean())
+        if agree_cpu < 0.999:
+            raise AssertionError(f"card and CPU labels agree on only {agree_cpu:.4%}")
+        serving = dict(f32=serve, packed_f32=serve_packed, packed_q16=serve_q16)
+        for tag, sv in serving.items():
+            log(f"[trainer] serve {tag}: {sv['points']} val points in {sv['wall_s']:.3f} s, "
+                f"{sv['points_per_s']:.0f} points/s")
+        log(f"[trainer] packed-f32 labels equal the f32 path on the same values; agreement "
+            f"with plain f32: packed f32 {' '.join(f'{v:.6f}' for v in agree_packed)}, "
+            f"packed q16 {' '.join(f'{v:.6f}' for v in agree_q16)}; benchmark.evaluate "
+            f"mean_iou {scores['mean_iou']:.6f} = in-memory {direct:.6f}; card vs CPU on "
+            f"{int(keep.sum())} points of {names[0]}: {agree_cpu:.6f} (CPU {t_cpu:.1f} s)")
+        return dict(seconds=secs, rooms=dict(train=n_train, val=n_val, points=scene_points),
+                    host_batch_ms=host_ms, runs=runs, steady_runs=steady, serving=serving, agreement_packed_f32=agree_packed,
+                    agreement_packed_q16=agree_q16, mean_iou=scores["mean_iou"],
+                    mean_iou_direct=direct, cpu_points=int(keep.sum()),
+                    cpu_agreement=agree_cpu)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1338,34 +1674,46 @@ def main() -> int:
     t_start = time.perf_counter()
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    phase_build()
-    model = phase_model(dev, n=8192)
-    serve = phase_serve(model, dev, scene_points=150_000, n_scenes=3, npoints=8192, batch=16)
-    fwd = phase_forward_time(model, dev, batch=16, n=8192, reps=10)
+    phase_s = {}
+
+    def phase(label, fn, /, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        phase_s[label] = time.perf_counter() - t0
+        log(f"[phase] {label}: {phase_s[label]:.1f} s")
+        return out
+
+    phase("build", phase_build)
+    model = phase("model", phase_model, dev, n=8192)
+    serve = phase("serve", phase_serve, model, dev, scene_points=150_000, n_scenes=3,
+                  npoints=8192, batch=16)
+    fwd = phase("forward", phase_forward_time, model, dev, batch=16, n=8192, reps=10)
     rooms = [make_synthetic_scene(150_000, seed=200 + s) for s in range(4)]
-    parity = phase_train_parity(dev, rooms, n=8192)
+    parity = phase("train-parity", phase_train_parity, dev, rooms, n=8192)
     batches, t_data = train_batches(rooms, batch=16, npoints=8192, count=23)
     log(f"[train] {len(batches)} batches of B16 x 8192 made on the host in {t_data:.1f} s")
-    train = phase_train(dev, batches, steps=20, warmup=3)
+    train = phase("train", phase_train, dev, batches, steps=20, warmup=3)
+    trained = phase("trainer", phase_trainer, dev)
 
     # The attention slice: the three registry models at full width, then the
     # first one's train step against the CPU, its training and its forward.
     attn_models = {}
     for name, kw in ATTENTION_MODELS:
-        attn_models[name] = phase_model(dev, n=8192, name=name, tag="attention-model", **kw)
+        attn_models[name] = phase(f"attention-model {name}", phase_model, dev, n=8192,
+                                  name=name, tag="attention-model", **kw)
     attn_model = attn_models["sem_seg_attention"]
     del attn_models
-    attn_fwd = phase_forward_time(attn_model, dev, batch=16, n=8192, reps=10,
-                                  tag="attention-forward")
-    attn_parity = phase_train_parity(dev, rooms, n=8192, name="sem_seg_attention",
-                                     tag="attention-train-parity")
-    attn_train = phase_train(dev, batches, steps=10, warmup=3, name="sem_seg_attention",
-                             tag="attention-train")
+    attn_fwd = phase("attention-forward", phase_forward_time, attn_model, dev, batch=16,
+                     n=8192, reps=10, tag="attention-forward")
+    attn_parity = phase("attention-train-parity", phase_train_parity, dev, rooms, n=8192,
+                        name="sem_seg_attention", tag="attention-train-parity")
+    attn_train = phase("attention-train", phase_train, dev, batches, steps=10, warmup=3,
+                       name="sem_seg_attention", tag="attention-train")
     del rooms, batches
-    rep, geom = phase_kernels(dev, batch=16, n=8192, reps=20)
-    rep.update(phase_kernels_bwd(dev, geom, reps=20))
+    rep, geom = phase("kernels", phase_kernels, dev, batch=16, n=8192, reps=20)
+    rep.update(phase("kernels-bwd", phase_kernels_bwd, dev, geom, reps=20))
     del geom
-    phase_device_times(rep)
+    phase("device-times", phase_device_times, rep)
     fwd_device_ms = phase_forward_device(model, dev, batch=16, n=8192)
     attn_fwd_device_ms = phase_forward_device(attn_model, dev, batch=16, n=8192)
     fwd_after = phase_forward_time(model, dev, batch=16, n=8192, reps=10,
@@ -1383,7 +1731,10 @@ def main() -> int:
                           for k, v in r["levels"].items())
         lib = ("-" if r["library_ms"] is None else
                f"{r['library_ms']:.4f} ms, device {r['library_device_ms']:.4f}")
-        log(f"[report] {name:21s} launches={launches:4d} {r['shape']}: "
+        trainer_launches = " ".join(f"{tag}={run['launches'][name]}"
+                                    for tag, run in trained["runs"].items())
+        log(f"[report] {name:21s} launches={launches:4d} (trainer window: {trainer_launches}) "
+            f"{r['shape']}: "
             f"{r['ms']:.4f} ms, device {r['device_ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
             f"library {lib} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}); per level "
             f"ms wall/device{'/bound' if 'level_bound' in r else ''}: {levels}; "
@@ -1393,6 +1744,8 @@ def main() -> int:
             "replaces": PALLAS + pallas, "launches": launches,
             "launch_window": "serve" if name in FORWARD_KERNELS else "train",
             "attention_train_launches": attn_train["launches"][name],
+            "trainer_launches": {tag: run["launches"][name]
+                                 for tag, run in trained["runs"].items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "library_device_ms": r["library_device_ms"],
@@ -1427,6 +1780,7 @@ def main() -> int:
                                  "forward_b16_peak_bytes": attn_fwd["peak_bytes"],
                                  "forward_b16_device_ms": attn_fwd_device_ms,
                                  "train_parity": attn_parity, "train": attn_train},
+                   "trainer": trained, "phase_seconds": phase_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))

@@ -11,7 +11,10 @@ The port's own numpy copy of the JAX package's ``data/scannet/chunks.py``:
 - ``full_scene_chunks``: a grid of ``chunk_size`` cells with a ``margin``
   of context, each cell's members shuffled into ceil(len/npoints) chunks
   covering every point, the ragged tail filled with masked random repeats;
-  optionally the per-point training weights.
+  optionally the per-point training weights; ``grid_chunks_for_eval``
+  packages them as a validation chunk dict.
+- ``random_z_rotation``: one random rotation of a cloud and its normals
+  about z (the augmentation of precomputed training chunks).
 
 Given the same ``RandomState`` both draw the same numbers in the same order
 as the JAX package's, so their chunks are identical.
@@ -19,7 +22,7 @@ as the JAX package's, so their chunks are identical.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -205,3 +208,40 @@ def map_back(
     flat_mask = np.asarray(masks).reshape(-1).astype(bool)
     out[flat_idx[flat_mask]] = values.reshape((-1,) + values.shape[2:])[flat_mask]
     return out
+
+
+def grid_chunks_for_eval(
+    points: np.ndarray,
+    labels: np.ndarray,
+    colors: np.ndarray,
+    normals: np.ndarray,
+    npoints: int,
+    rng: Optional[np.random.RandomState] = None,
+    chunk_size: float = CHUNK_SIZE,
+    margin: float = CONTEXT_MARGIN,
+) -> Dict[str, np.ndarray]:
+    """Validation chunks: ``full_scene_chunks`` with training weights, as a
+    dict of points, labels (int32), colors, normals (f32), weights, masks
+    and orig_idx.  ``rng`` defaults to ``RandomState(0)``."""
+    rng = rng if rng is not None else np.random.RandomState(0)
+    cs = full_scene_chunks(points, [labels, colors, normals], npoints=npoints, rng=rng,
+                           chunk_size=chunk_size, margin=margin, get_sample_weights=True)
+    return {
+        "points": cs.points,
+        "labels": cs.features[0].astype(np.int32),
+        "colors": cs.features[1],
+        "normals": cs.features[2].astype(np.float32),
+        "weights": cs.weights,
+        "masks": cs.masks,
+        "orig_idx": cs.orig_idx,
+    }
+
+
+def random_z_rotation(points: np.ndarray, normals: Optional[np.ndarray],
+                      rng: np.random.RandomState
+                      ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """Rotate a cloud and its normals by one random angle about z."""
+    a = rng.uniform() * 2 * np.pi
+    c, s = np.cos(a), np.sin(a)
+    rot = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+    return points @ rot, (normals @ rot if normals is not None else None)

@@ -14,10 +14,18 @@ mu, nu; the schedule's count), written as ``opt_state/0/.count``,
 ``opt_state/1/.count``.  They map onto ``torch.optim.Adam``'s state as mu ->
 ``exp_avg``, nu -> ``exp_avg_sq`` and count -> ``step``
 (``export_jax_state`` / ``load_jax_state``).
+
+The checkpoint manager (``save_checkpoint``, ``latest_checkpoint``,
+``best_checkpoint``, ``restore_checkpoint``, ``BestKeeper``) writes those
+keys as ``{prefix}_{step:08d}.npz`` beside a json manifest ``{"step",
+"metric", "file"}``, as the JAX package's ``train/checkpoints.py`` does, so
+each package restores the other's checkpoints.
 """
 from __future__ import annotations
 
-from typing import Dict, Union
+import json
+import os
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -143,3 +151,91 @@ def load_jax_checkpoint(path: str, target: Union[nn.Module, TrainState]):
     if isinstance(target, TrainState):
         return load_jax_state(flat, target)
     return load_jax_variables(flat, target)
+
+
+# ---- the checkpoint manager -----------------------------------------------------
+
+
+def save_checkpoint(ckpt_dir: str, state: TrainState, step: int,
+                    metric: Optional[float] = None, keep_best_only: bool = False,
+                    prefix: str = "ckpt") -> str:
+    """Write ``state`` as ``{prefix}_{step:08d}.npz`` plus its json manifest;
+    with ``keep_best_only`` every other checkpoint of ``prefix`` is removed.
+    Returns the npz path."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    name = f"{prefix}_{step:08d}"
+    path = os.path.join(ckpt_dir, name + ".npz")
+    save_jax_checkpoint(path, state)
+    with open(os.path.join(ckpt_dir, name + ".json"), "w") as f:
+        json.dump({"step": int(step), "metric": metric, "file": name + ".npz"}, f)
+    if keep_best_only:
+        _prune_others(ckpt_dir, prefix, keep=name)
+    return path
+
+
+def _manifests(ckpt_dir: str, prefix: str):
+    out = []
+    if not os.path.isdir(ckpt_dir):
+        return out
+    for fn in os.listdir(ckpt_dir):
+        if fn.startswith(prefix) and fn.endswith(".json"):
+            with open(os.path.join(ckpt_dir, fn)) as f:
+                m = json.load(f)
+            m["_name"] = fn[:-5]
+            out.append(m)
+    return out
+
+
+def _prune_others(ckpt_dir: str, prefix: str, keep: str) -> None:
+    for m in _manifests(ckpt_dir, prefix):
+        if m["_name"] != keep:
+            for ext in (".json", ".npz"):
+                p = os.path.join(ckpt_dir, m["_name"] + ext)
+                if os.path.exists(p):
+                    os.remove(p)
+
+
+def latest_checkpoint(ckpt_dir: str, prefix: str = "ckpt") -> Optional[str]:
+    """The npz path of ``prefix``'s checkpoint with the highest step, or None."""
+    ms = _manifests(ckpt_dir, prefix)
+    if not ms:
+        return None
+    return os.path.join(ckpt_dir, max(ms, key=lambda m: m["step"])["file"])
+
+
+def best_checkpoint(ckpt_dir: str, prefix: str = "ckpt") -> Optional[str]:
+    """The npz path of ``prefix``'s checkpoint with the highest metric; the
+    latest one when none has a metric."""
+    ms = [m for m in _manifests(ckpt_dir, prefix) if m.get("metric") is not None]
+    if not ms:
+        return latest_checkpoint(ckpt_dir, prefix)
+    return os.path.join(ckpt_dir, max(ms, key=lambda m: m["metric"])["file"])
+
+
+def restore_checkpoint(path: str, state: TrainState) -> TrainState:
+    """Fill ``state`` (a template of the same model and Adam) from a
+    checkpoint of either package; raises ``ValueError`` on any key or shape
+    mismatch."""
+    return load_jax_checkpoint(path, state)
+
+
+class BestKeeper:
+    """Keeps the checkpoint of the best validation metric (prefix ``best``,
+    the others pruned).  Seeded from the manifests already on disk, so a
+    resumed run does not replace a better earlier best."""
+
+    def __init__(self, ckpt_dir: str, prefix: str = "best"):
+        self.ckpt_dir = ckpt_dir
+        self.prefix = prefix
+        self.best = -np.inf
+        for manifest in _manifests(ckpt_dir, prefix):
+            if manifest.get("metric") is not None:
+                self.best = max(self.best, manifest["metric"])
+
+    def maybe_save(self, state: TrainState, step: int, metric: float) -> bool:
+        if metric > self.best:
+            self.best = metric
+            save_checkpoint(self.ckpt_dir, state, step, metric=metric, keep_best_only=True,
+                            prefix=self.prefix)
+            return True
+        return False

@@ -1,14 +1,14 @@
 """Step functions of the port: one training step, one eval step and the
-eval-mode prediction for serving; the counterparts of the JAX package's
+eval-mode predictions for serving; the counterparts of the JAX package's
 ``train/steps.py``.
 
 A training step is forward in train mode (batch statistics, the BN EMA
 decay from ``bn_schedule`` at the pre-increment step), the weighted cross
 entropy, backward (through the gather and interpolation kernels on the
 card), one Adam update, and the confusion matrix, accuracy and LR of the
-batch.  Batches are dicts of numpy arrays or tensors, in the f32 or compact
-wire format of ``data.pipeline.make_batch``; they are copied to the model's
-device.
+batch.  Batches are dicts of numpy arrays or tensors, in the f32, compact
+or packed wire format of ``data.pipeline.make_batch``; they are copied to
+the model's device on the current stream and decoded there.
 """
 from __future__ import annotations
 
@@ -44,20 +44,33 @@ def _to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
     return out
 
 
-def make_sample_weights(labels: torch.Tensor, inner_mask: torch.Tensor) -> torch.Tensor:
-    """weight = SCANNET_CLASS_WEIGHTS[label] * mask."""
-    cw = torch.tensor(SCANNET_CLASS_WEIGHTS, dtype=torch.float32, device=labels.device)
+def make_sample_weights(labels: torch.Tensor, inner_mask: torch.Tensor,
+                        class_weights=None) -> torch.Tensor:
+    """weight = class_weights[label] * mask, in float32; ``class_weights``
+    defaults to ``SCANNET_CLASS_WEIGHTS``."""
+    cw = torch.tensor(SCANNET_CLASS_WEIGHTS if class_weights is None else class_weights,
+                      dtype=torch.float32, device=labels.device)
     return cw[labels.long()] * inner_mask.float()
 
 
-def expand_wire_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Compact-wire batch -> standard batch on its device: int32 labels, f32
+def expand_wire_batch(batch: Dict[str, torch.Tensor], wire_spec=None) -> Dict[str, torch.Tensor]:
+    """Wire batch -> standard batch on its device: int32 labels, f32
     features (colors / 255, then normals) and ``class_weight[label] * mask``
-    weights.  A standard batch passes through; a packed one raises."""
-    if any(k.startswith("packed") for k in batch):
-        raise NotImplementedError(
-            "the packed single-buffer wire (data/wire.py) is not ported yet "
-            "(ROADMAP Queue 1 item 3)")
+    weights.  A packed batch ('packed', or the byte-column slices
+    'packed0'.. joined in numeric order) is decoded by
+    ``data.wire.unpack_batch`` with ``wire_spec``; a compact one is widened;
+    a standard one passes through."""
+    packed_keys = sorted((k for k in batch if k.startswith("packed")),
+                         key=lambda k: int(k[6:] or 0))
+    if packed_keys:
+        from pointcloud_segmentation_attention_tpu_torch.data.wire import unpack_batch
+
+        if wire_spec is None:
+            raise ValueError("batch is in packed wire format but no wire_spec was passed "
+                             "to the step")
+        rows = (batch[packed_keys[0]] if len(packed_keys) == 1
+                else torch.cat([batch[k] for k in packed_keys], dim=1))
+        return unpack_batch(rows, wire_spec)
     if "mask" not in batch:
         return batch
     labels = batch["labels"].to(torch.int32)
@@ -98,22 +111,26 @@ def seg_train_step(
     bn_schedule: Callable[[int], float] = schedules.scannet_bn_momentum,
     num_classes: int = 21,
     remat: str = "none",
+    wire_spec=None,
 ):
     """One training step on a segmentation batch; updates ``state`` in place
     and returns ``(state, metrics)``.
 
     ``batch``: 'points' (B,N,3) f32, 'labels' (B,N) int, 'weights' (B,N) f32
     (class weight x mask) and optional 'features' (B,N,K), or the compact
-    wire format.  ``metrics`` holds device tensors 'loss', 'accuracy' and
-    'confusion' (C, C) and the float 'learning_rate'; no host sync is made.
+    or packed wire format (``wire_spec`` describes a packed record).
+    ``metrics`` holds device tensors 'loss', 'accuracy' and
+    'confusion' (C, C) and the float 'learning_rate' (``state``'s schedule
+    at the pre-increment step); no host sync is made.
     After the step each parameter's ``.grad`` holds this step's gradient.
     """
     if remat != "none":
         raise NotImplementedError(
-            f"remat={remat!r}: activation rematerialisation is not ported yet")
+            f"remat={remat!r}: activation rematerialisation is not ported yet "
+            "(ROADMAP Queue 1 item 3)")
     model = state.model
     dev = _device_of(model)
-    batch = expand_wire_batch(_to_device(batch, dev))
+    batch = expand_wire_batch(_to_device(batch, dev), wire_spec)
     bn_momentum = bn_schedule(state.step)
     generator = _dropout_generator(dev, dropout_seed, state.step)
     model.train()
@@ -128,13 +145,13 @@ def seg_train_step(
     return state, out
 
 
-def seg_eval_step(state: TrainState, batch: Dict, *,
-                  num_classes: int = 21) -> Dict[str, torch.Tensor]:
+def seg_eval_step(state: TrainState, batch: Dict, *, num_classes: int = 21,
+                  wire_spec=None) -> Dict[str, torch.Tensor]:
     """Eval forward (running BN statistics, no dropout): 'loss', 'accuracy',
     'confusion' and 'predictions' (B,N) int32, as device tensors.  The
     model's train/eval mode is restored afterwards."""
     model = state.model
-    batch = expand_wire_batch(_to_device(batch, _device_of(model)))
+    batch = expand_wire_batch(_to_device(batch, _device_of(model)), wire_spec)
     was_training = model.training
     model.eval()
     try:
@@ -159,3 +176,11 @@ def seg_predict_step(model: nn.Module, points: torch.Tensor,
             return model(points, features)
     finally:
         model.train(was_training)
+
+
+def seg_predict_step_packed(model: nn.Module, packed, *, wire_spec) -> torch.Tensor:
+    """``seg_predict_step`` on packed rows (B, row_nbytes) u8, numpy or a
+    tensor: copied to the model's device and decoded there (the label and
+    mask bytes are unused)."""
+    batch = expand_wire_batch(_to_device({"packed": packed}, _device_of(model)), wire_spec)
+    return seg_predict_step(model, batch["points"], batch.get("features"))

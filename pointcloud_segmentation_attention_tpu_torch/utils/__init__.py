@@ -1,1 +1,1 @@
-"""Measurement tools of the port (run on the card)."""
+"""Tools of the port: the trainer configuration, metric logging, and measurement scripts that run on the card."""

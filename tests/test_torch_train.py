@@ -330,9 +330,11 @@ def test_make_batch_matches_jax(scene, wire):
     assert sorted(expanded) == sorted(want)
     for k in want:
         np.testing.assert_array_equal(expanded[k].numpy(), np.asarray(want[k]), err_msg=k)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tpipeline.make_batch(chunks, True, True, "packed_q16")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    # The packed formats are ported: the same bytes as the JAX package, and
+    # decoding one needs its WireSpec.
+    _assert_dicts_equal(tpipeline.make_batch(chunks, True, True, "packed_q16"),
+                        jpipeline.make_batch(chunks, True, True, "packed_q16"))
+    with pytest.raises(ValueError, match="wire_spec"):
         tsteps.expand_wire_batch({"packed": _t(np.zeros((1, 4), np.uint8))})
 
 
