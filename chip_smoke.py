@@ -17,7 +17,18 @@ Phases (each raises on failure; the script then exits non-zero):
                    chunks, predicted in batches of 16 and stitched; launch
                    counters are zeroed just before and read just after: every
                    forward kernel launched, no backward kernel did.
-4. forward      -- B16 x 8192 eval forward time.
+   serve-resident -- the same rooms through ``ResidentSceneServer`` (q16, one
+                   upload and one u8 fetch a room, the chunker, forwards and
+                   stitch on the card, two rooms in flight): launch counters
+                   as in phase 3; points/s, ms a room, peak memory, chunks
+                   against scheduled slots, ``_stage`` timed in the pipeline
+                   and alone.  On one room: the card's chunker bit for bit
+                   equal to the numpy twin (f32 layout, ``GEOMETRIES``), the
+                   f32 server's labels equal to ``predict_scene_chunks`` fed
+                   the twin's chunks, q16 labels >= 98 % of f32's,
+                   ``group_size=3`` equal to ungrouped, a BN-folded copy
+                   (``train/bn_fold.py``) >= 99.9 % of the unfolded labels.
+4. forward      -- B16 x 8192 eval forward time, unfolded and BN-folded.
 5. train-parity -- one ``seg_train_step`` at full width, B2 x 8192, TF32 and
                    dropout off, from the same seeded weights and batch on the
                    card, on the card through the plain ops, on the CPU, and a
@@ -34,14 +45,19 @@ Phases (each raises on failure; the script then exits non-zero):
                    the q16 pack store, timed; ``trainer.train`` at B16 x 8192
                    for 3 epochs of 2 steps with validation every epoch, once
                    with ``input='npz'`` and once with ``input='packed'``
-                   (``packed_q16``): launch counters zeroed just before and
-                   read just after each run, all seven kernels launched,
+                   (``packed_q16``), and once with ``input='resident'`` (the
+                   q16 store on the card, each step's rows equal to the
+                   packed run's byte for byte): launch counters zeroed just
+                   before and read just after each run, all seven kernels
+                   launched,
                    every logged loss finite, the step count as configured,
                    the best checkpoint restoring bit for bit; then
                    ``generate_predictions`` over the val rooms from that
                    checkpoint as f32, packed f32 (equal to the f32 path on
-                   the values the record carries) and packed q16 rows,
-                   ``benchmark.evaluate`` equal to the in-memory mIoU, and a
+                   the values the record carries) and packed q16 rows, and
+                   through ``generate_predictions_resident``;
+                   ``benchmark.evaluate`` equal to the in-memory mIoU (f32
+                   and resident), and a
                    crop of one room on the card and the CPU (>= 99.9 %).
    The attention slice (``ATTENTION_MODELS``, fed xyz only, as the
    reference's attention ablation ran them):
@@ -85,7 +101,8 @@ Phases (each raises on failure; the script then exits non-zero):
                    and without dw, with its bound at every level; timed like
                    phase 7.
 9. device-times -- device-only time of every timed kernel level and library
-                   call, and of both B16 forwards, from the profiler's kernel
+                   call, and of the B16 forwards (flagship unfolded and
+                   folded, attention), from the profiler's kernel
                    events (``device_ms``); then the B16 forward is timed
                    again.  Last of the timed
                    phases: train steps timed after the profiler had run
@@ -93,8 +110,9 @@ Phases (each raises on failure; the script then exits non-zero):
                    phases come after the end-to-end ones so that their
                    inputs, which phase 9 reuses, do not count in the serve
                    and train windows' peak memory.
-10. report      -- one line per kernel (with its launches in each trainer
-                   run), a ``{"kernels": [...]}`` JSON line, the
+10. report      -- one line per kernel (with its launches in the
+                   serve-resident window and in each trainer run), a
+                   ``{"kernels": [...]}`` JSON line, the
                    card's name and power limit, and the final
                    ``{"ok": true, "device": {...}}`` line.
 
@@ -146,6 +164,7 @@ from pointcloud_segmentation_attention_tpu_torch.eval.full_scene import (  # noq
     predict_scene_chunks,
     scene_chunks,
 )
+from pointcloud_segmentation_attention_tpu_torch.eval import resident_serving  # noqa: E402
 from pointcloud_segmentation_attention_tpu_torch.models import sem_seg  # noqa: E402
 from pointcloud_segmentation_attention_tpu_torch.ops import cuda as kernels  # noqa: E402
 from pointcloud_segmentation_attention_tpu_torch.ops import geometry as plain  # noqa: E402
@@ -170,6 +189,10 @@ from pointcloud_segmentation_attention_tpu_torch.train import (  # noqa: E402
     seg_train_step,
 )
 from pointcloud_segmentation_attention_tpu_torch.train import steps as train_steps  # noqa: E402
+from pointcloud_segmentation_attention_tpu_torch.train import device_replay  # noqa: E402
+from pointcloud_segmentation_attention_tpu_torch.train.bn_fold import (  # noqa: E402
+    fold_batchnorm_for_inference,
+)
 from pointcloud_segmentation_attention_tpu_torch.train import trainer  # noqa: E402
 from pointcloud_segmentation_attention_tpu_torch.utils.config import TrainConfig  # noqa: E402
 from pointcloud_segmentation_attention_tpu_torch.utils.logging import read_metrics  # noqa: E402
@@ -205,6 +228,9 @@ ATTENTION_MODELS = (("sem_seg_attention", {}),
                     ("sem_seg_attention_single_layer", {"layer_idx": 0}),
                     ("sem_seg_attention_and_pooling", {}))
 BACKWARD_KERNELS = ("group_gather_bwd", "three_interpolate_bwd")
+# Chunk geometries (cell, margin) the card's chunker is held to the numpy twin at:
+# the default and the context-margin ablation's two (JAX tests/test_resident_serving.py).
+GEOMETRIES = ((1.5, 0.2), (1.5, 0.0), (1.0, 0.3))
 
 
 def log(msg: str) -> None:
@@ -1082,6 +1108,135 @@ def phase_serve(model, dev, scene_points: int, n_scenes: int, npoints: int,
     return res
 
 
+def phase_serve_resident(model, dev, scene_points: int, n_scenes: int, npoints: int,
+                         batch: int):
+    """``ResidentSceneServer`` (q16, pipeline depth 2) over the serve phase's
+    rooms after one warm-up room: launch counters zeroed just before the
+    window and read just after (all five forward kernels, no backward);
+    points/s, ms a room, peak memory, each room's chunks against the slots
+    scheduled for it, and ``_stage`` timed inside the pipeline and alone.
+    Then, on one room: the card's chunker equal to the numpy twin bit for
+    bit (f32 layout, ``GEOMETRIES``); the f32 server's labels equal to
+    ``predict_scene_chunks`` on the card fed the twin's chunks; q16 against
+    f32 >= 98 %; ``group_size=3`` equal to the window's labels; a BN-folded
+    copy of the model >= 99.9 % of the unfolded labels.  Returns (report,
+    folded model)."""
+    scenes = [dict(make_synthetic_scene(scene_points, seed=100 + s), scene_name=f"room{s}")
+              for s in range(n_scenes + 1)]
+    server = resident_serving.ResidentSceneServer(model, npoints, batch_size=batch,
+                                                  layout="q16", pipeline_depth=2, device=dev)
+    stage_s, slots = [], []
+    stage, fetch = server._stage, server._fetch
+
+    def timed_stage(scene):
+        t0 = time.perf_counter()
+        out = stage(scene)
+        stage_s.append(time.perf_counter() - t0)
+        return out
+
+    def counted_fetch(computed):
+        out = fetch(computed)
+        slots.append((computed[0], int(computed[3]), computed[5]))
+        return out
+
+    server._stage, server._fetch = timed_stage, counted_fetch
+    server.predict_scene(scenes[0])  # warm-up: first launches, allocator growth
+    torch.cuda.synchronize()
+    stage_s.clear()
+    slots.clear()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    served = dict(server.predict_scenes(iter(scenes[1:])))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    missing = [k for k in FORWARD_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"serve-resident phase never launched {missing}")
+    if any(launches[k] for k in BACKWARD_KERNELS):
+        raise AssertionError(f"resident serving launched backward kernels: {launches}")
+    rooms = scenes[1:]
+    for sc in rooms:
+        labels = served[sc["scene_name"]]
+        if labels.shape != (len(sc["points"]),) or labels.min() < 0 or labels.max() >= 21:
+            raise AssertionError("resident labels have the wrong shape or range")
+    stage_alone = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        stage(rooms[0])
+        torch.cuda.synchronize()  # the upload included
+        stage_alone.append(time.perf_counter() - t1)
+    n_points = sum(len(sc["points"]) for sc in rooms)
+
+    # One room in the f32 layout: the chunker and the labels, bit for bit.
+    room = rooms[0]
+    n = len(room["points"])
+    layout = resident_serving.SceneLayout("f32", server._n_pad(n))
+    dbuf = torch.from_numpy(layout.pack(room["points"], room["colors"], room["normals"])).to(dev)
+    for cell, margin in GEOMETRIES:
+        x = resident_serving.chunk_count(room["points"], npoints, cell, margin)
+        idx, mask, nc = resident_serving.make_scene_chunker(
+            layout, resident_serving._bucket(x, 4 * batch), npoints, chunk_size=cell,
+            margin=margin)(dbuf, n)
+        twin = resident_serving.deterministic_scene_chunks(room["points"], [], npoints,
+                                                           chunk_size=cell, margin=margin)
+        idx, mask = idx.cpu().numpy(), mask.cpu().numpy()
+        if (int(nc) != x or x != len(twin.points) or not np.array_equal(idx[:x], twin.orig_idx)
+                or not np.array_equal(mask[:x], twin.masks) or mask[x:].any()):
+            raise AssertionError(f"the card's chunker differs from the numpy twin at "
+                                 f"({cell}, {margin}): {int(nc)} chunks, twin {len(twin.points)}")
+    f32 = resident_serving.ResidentSceneServer(model, npoints, batch_size=batch, layout="f32",
+                                               device=dev).predict_scene(room)
+    twin = resident_serving.deterministic_scene_chunks(
+        room["points"], [room["colors"], room["normals"]], npoints)
+    host_scene = dict(points=twin.points, colors=twin.features[0],
+                      normals=twin.features[1].astype(np.float32), masks=twin.masks,
+                      orig_idx=twin.orig_idx, num_vertices=n)
+    host = predict_scene_chunks(make_predict_fn(model, device=dev), host_scene, True, True, batch)
+    if not np.array_equal(f32, host):
+        raise AssertionError(f"resident f32 labels differ from the host path on the same chunks "
+                             f"at {int((f32 != host).sum())} of {n} vertices")
+    q16_agree = float((served[room["scene_name"]] == f32).mean())
+    if q16_agree < 0.98:
+        raise AssertionError(f"q16 labels agree with f32 on only {q16_agree:.4%}")
+    grouped = dict(resident_serving.ResidentSceneServer(
+        model, npoints, batch_size=batch, layout="q16", group_size=3, device=dev
+    ).predict_scenes(iter(rooms)))
+    for sc in rooms:
+        if not np.array_equal(grouped[sc["scene_name"]], served[sc["scene_name"]]):
+            raise AssertionError(f"group_size=3 labels differ from the ungrouped server on "
+                                 f"{sc['scene_name']}")
+    folded, n_folded = fold_batchnorm_for_inference(model)
+    folded_labels = dict(resident_serving.ResidentSceneServer(
+        folded, npoints, batch_size=batch, layout="q16", device=dev).predict_scenes(iter(rooms)))
+    fold_agree = [float((folded_labels[sc["scene_name"]] == served[sc["scene_name"]]).mean())
+                  for sc in rooms]
+    if min(fold_agree) < 0.999:
+        raise AssertionError(f"BN-folded labels agree with the unfolded ones on only "
+                             f"{fold_agree}")
+    res = dict(scenes=len(rooms), points=n_points, wall_s=wall, points_per_s=n_points / wall,
+               ms_per_room=wall * 1e3 / len(rooms), peak_bytes=peak, launches=launches,
+               chunks_and_slots=[{"scene": a, "n_chunks": b, "slots": c} for a, b, c in slots],
+               stage_ms_in_pipeline=[v * 1e3 for v in stage_s],
+               stage_ms_alone=[v * 1e3 for v in stage_alone], q16_vs_f32=q16_agree,
+               n_folded=n_folded, folded_agreement=fold_agree)
+    ms = {k: " ".join(f"{v:.1f}" for v in res[k])
+          for k in ("stage_ms_in_pipeline", "stage_ms_alone")}
+    log(f"[serve-resident] {len(rooms)} rooms, {n_points} points in {wall:.3f} s after one "
+        f"warm-up room: {res['points_per_s']:.0f} points/s, {res['ms_per_room']:.2f} ms a room; "
+        f"max_memory_allocated {peak / 2**20:.1f} MiB; chunks / slots "
+        f"{' '.join(f'{b}/{c}' for _, b, c in slots)}; _stage {ms['stage_ms_in_pipeline']} ms "
+        f"in the pipeline, {ms['stage_ms_alone']} ms alone")
+    log(f"[serve-resident] chunker equal to the numpy twin at {list(GEOMETRIES)}; f32 labels "
+        f"equal to predict_scene_chunks on the twin's chunks ({n} vertices); q16 vs f32 "
+        f"{q16_agree:.6f}; group_size=3 equal; BN-folded ({n_folded} convs) vs unfolded "
+        f"{' '.join(f'{v:.6f}' for v in fold_agree)}")
+    log(f"[serve-resident] launches in the serve-resident window: {json.dumps(launches)}")
+    return res, folded
+
+
 def _forward_inputs(model, dev, batch: int, n: int):
     """Seeded points (and colors and normals, where the model takes them)."""
     rng = np.random.RandomState(2)
@@ -1108,13 +1263,13 @@ def phase_forward_time(model, dev, batch: int, n: int, reps: int, tag: str = "fo
     return dict(ms=ms, peak_bytes=peak, peak_above_inputs_bytes=peak - base)
 
 
-def phase_forward_device(model, dev, batch: int, n: int) -> float:
+def phase_forward_device(model, dev, batch: int, n: int, what: str = "eval forward") -> float:
     """Device-only time of one B16 x 8192 eval forward (``device_ms``)."""
     pts, feats = _forward_inputs(model, dev, batch, n)
     from pointcloud_segmentation_attention_tpu_torch.train import seg_predict_step
 
     ms = device_ms(lambda: seg_predict_step(model, pts, feats), calls=5)
-    log(f"[device-times] B{batch} x {n} eval forward: {ms:.3f} ms of device time")
+    log(f"[device-times] B{batch} x {n} {what}: {ms:.3f} ms of device time")
     return ms
 
 
@@ -1368,32 +1523,49 @@ def phase_train(dev, batches, steps: int, warmup: int, name: str = "sem_seg_feat
 
 # ---- the trainer entry point, end to end -------------------------------------------
 
+# The resident run reads the q16 store's rows on the card; with the same
+# wire_format as the packed run its validation reads the same batches too.
 TRAINER_RUNS = (("npz", dict(input="npz")),
-                ("packed_q16", dict(input="packed", wire_format="packed_q16")))
+                ("packed_q16", dict(input="packed", wire_format="packed_q16")),
+                ("resident", dict(input="resident", wire_format="packed_q16")))
 
 
 @contextlib.contextmanager
-def timed_train_steps(events: list, host_ms: list):
+def timed_train_steps(events: list, host_ms: list, rows: list):
     """CUDA events around every ``seg_train_step`` that ``trainer.train``
     calls, appended to ``events``, and the host milliseconds each call took
-    to queue its work, appended to ``host_ms`` (no host sync is added)."""
-    inner = train_steps.seg_train_step
+    to queue its work, appended to ``host_ms`` (no host sync is added).
+    ``rows`` gets each step's packed rows: a packed batch's own, or for the
+    resident corpus the (corpus, index) pair its rows are gathered by."""
+    inner, gather = train_steps.seg_train_step, device_replay.gather_batch
 
-    def timed(*args, **kwargs):
+    def timed(state, batch, *args, **kwargs):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
-        out = inner(*args, **kwargs)
+        if "packed" in batch:
+            rows.append(batch["packed"])
+        out = inner(state, batch, *args, **kwargs)
         end.record()
         host_ms.append((time.perf_counter() - t0) * 1e3)
         events.append((start, end))
         return out
 
-    train_steps.seg_train_step = timed
+    def gathered(corpus, idx, spec):
+        rows.append((corpus, idx.clone()))
+        return gather(corpus, idx, spec)
+
+    train_steps.seg_train_step, device_replay.gather_batch = timed, gathered
     try:
         yield
     finally:
-        train_steps.seg_train_step = inner
+        train_steps.seg_train_step, device_replay.gather_batch = inner, gather
+
+
+def _host_rows(rows: list) -> list:
+    """Each step's packed rows as numpy, gathering the resident ones now."""
+    return [np.asarray(r) if not isinstance(r, tuple)
+            else r[0][r[1].to(r[0].device).long()].cpu().numpy() for r in rows]
 
 
 def nyu40_miou(preds, gts) -> float:
@@ -1439,11 +1611,12 @@ def _train_run(dev, cfg: TrainConfig, tag: str, expect_steps: int) -> dict:
     the best checkpoint restore bit for bit into a fresh ``make_eval_state``."""
     events: list = []
     host_ms: list = []
+    rows: list = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    with timed_train_steps(events, host_ms):
+    with timed_train_steps(events, host_ms, rows):
         summary = trainer.train(cfg, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1477,7 +1650,7 @@ def _train_run(dev, cfg: TrainConfig, tag: str, expect_steps: int) -> dict:
         input_wait_share=[r["input_wait_s"] / r["epoch_s"] for r in epochs],
         train_loss=[r["train_loss"] for r in epochs],
         val_miou=[r["val_miou"] for r in vals], val_loss=[r["val_loss"] for r in vals],
-        best_checkpoint=best and os.path.basename(best))
+        best_checkpoint=best and os.path.basename(best), step_rows=rows)
     log(f"[trainer] {tag}: {summary['final_step']} steps, {cfg.epochs} epochs, "
         f"{len(vals)} validations, "
         f"{wall:.2f} s wall; points/s per epoch (the trainer's, host pipeline included) "
@@ -1591,6 +1764,16 @@ def phase_trainer(dev, n_train: int = 32, n_val: int = 2, scene_points: int = 15
         for tag, over in TRAINER_RUNS:
             cfgs[tag] = TrainConfig(**base, **over, log_dir=os.path.join(work, "logs_" + tag))
             runs[tag] = _train_run(dev, cfgs[tag], tag, steps)
+        # The resident run trains on the packed run's rows, step for step.
+        packed_rows = _host_rows(runs["packed_q16"].pop("step_rows"))
+        resident_rows = _host_rows(runs["resident"].pop("step_rows"))
+        runs["npz"].pop("step_rows")
+        if len(resident_rows) != steps or len(packed_rows) != steps or any(
+                a.tobytes() != b.tobytes() for a, b in zip(packed_rows, resident_rows)):
+            raise AssertionError("trainer resident: the gathered rows differ from the "
+                                 "packed_q16 run's")
+        log(f"[trainer] resident: the rows gathered on the card equal the packed_q16 run's "
+            f"at each of the {steps} steps, byte for byte")
         # The same replays past the prefetch queue's depth (4 batches, which
         # validation refills between the short epochs above): no validation,
         # no checkpoints, steady_epochs epochs.
@@ -1601,6 +1784,7 @@ def phase_trainer(dev, n_train: int = 32, n_val: int = 2, scene_points: int = 15
                               log_dir=os.path.join(work, "steady_" + tag))
             steady[tag] = _train_run(dev, cfg, tag + " steady",
                                      steady_epochs * (n_train // batch))
+            steady[tag].pop("step_rows")
 
         state = trainer.make_eval_state(cfgs["npz"], device=dev)
         restore_checkpoint(best_checkpoint(cfgs["npz"].ckpt_dir, "best"), state)
@@ -1612,6 +1796,14 @@ def phase_trainer(dev, n_train: int = 32, n_val: int = 2, scene_points: int = 15
                                       npoints, batch, WireSpec(npoints, "f32"))
         quant, serve_q16 = _serve(model, dev, root, names, os.path.join(out, "q16"), npoints,
                                   batch, q16)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resident = list(resident_serving.generate_predictions_resident(
+            model, root, names, os.path.join(out, "resident"), npoints=npoints,
+            batch_size=batch, device=dev))
+        wall = time.perf_counter() - t0
+        n_res = sum(len(r["predictions"]) for r in resident)
+        serve_resident = dict(points=n_res, wall_s=wall, points_per_s=n_res / wall)
         predict = make_predict_fn(model, device=dev)
         agree_packed, agree_q16 = [], []
         for scene, a, b, c in zip(precompute.eval_scene_stream(root, names, npoints=npoints),
@@ -1634,6 +1826,16 @@ def phase_trainer(dev, n_train: int = 32, n_val: int = 2, scene_points: int = 15
         direct = nyu40_miou([r["predictions"] for r in f32], [r["labels"] for r in f32])
         if not abs(scores["mean_iou"] - direct) <= 1e-12 * max(1.0, abs(direct)):
             raise AssertionError(f"evaluate mean_iou {scores['mean_iou']} != in-memory {direct}")
+        if [r["scene_name"] for r in resident] != list(names):
+            raise AssertionError("generate_predictions_resident served other scenes")
+        scores_res = benchmark.evaluate(
+            [os.path.join(out, "resident", f"{n}.txt") for n in names], gt_files,
+            os.path.join(out, "results_resident.txt"))
+        direct_res = nyu40_miou([r["predictions"] for r in resident],
+                                [r["labels"] for r in resident])
+        if not abs(scores_res["mean_iou"] - direct_res) <= 1e-12 * max(1.0, abs(direct_res)):
+            raise AssertionError(f"evaluate mean_iou {scores_res['mean_iou']} of the resident "
+                                 f"predictions != in-memory {direct_res}")
 
         room = load_scene_mapped(root, names[0])
         keep = room["points"][:, 0] < cpu_crop
@@ -1647,19 +1849,22 @@ def phase_trainer(dev, n_train: int = 32, n_val: int = 2, scene_points: int = 15
         agree_cpu = float((on_card == on_cpu).mean())
         if agree_cpu < 0.999:
             raise AssertionError(f"card and CPU labels agree on only {agree_cpu:.4%}")
-        serving = dict(f32=serve, packed_f32=serve_packed, packed_q16=serve_q16)
+        serving = dict(f32=serve, packed_f32=serve_packed, packed_q16=serve_q16,
+                       resident_q16=serve_resident)
         for tag, sv in serving.items():
             log(f"[trainer] serve {tag}: {sv['points']} val points in {sv['wall_s']:.3f} s, "
                 f"{sv['points_per_s']:.0f} points/s")
         log(f"[trainer] packed-f32 labels equal the f32 path on the same values; agreement "
             f"with plain f32: packed f32 {' '.join(f'{v:.6f}' for v in agree_packed)}, "
             f"packed q16 {' '.join(f'{v:.6f}' for v in agree_q16)}; benchmark.evaluate "
-            f"mean_iou {scores['mean_iou']:.6f} = in-memory {direct:.6f}; card vs CPU on "
+            f"mean_iou {scores['mean_iou']:.6f} = in-memory {direct:.6f} (resident "
+            f"{scores_res['mean_iou']:.6f} = {direct_res:.6f}); card vs CPU on "
             f"{int(keep.sum())} points of {names[0]}: {agree_cpu:.6f} (CPU {t_cpu:.1f} s)")
         return dict(seconds=secs, rooms=dict(train=n_train, val=n_val, points=scene_points),
                     host_batch_ms=host_ms, runs=runs, steady_runs=steady, serving=serving, agreement_packed_f32=agree_packed,
                     agreement_packed_q16=agree_q16, mean_iou=scores["mean_iou"],
-                    mean_iou_direct=direct, cpu_points=int(keep.sum()),
+                    mean_iou_direct=direct, mean_iou_resident=scores_res["mean_iou"],
+                    cpu_points=int(keep.sum()),
                     cpu_agreement=agree_cpu)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1687,7 +1892,11 @@ def main() -> int:
     model = phase("model", phase_model, dev, n=8192)
     serve = phase("serve", phase_serve, model, dev, scene_points=150_000, n_scenes=3,
                   npoints=8192, batch=16)
+    resident, folded = phase("serve-resident", phase_serve_resident, model, dev,
+                             scene_points=150_000, n_scenes=3, npoints=8192, batch=16)
     fwd = phase("forward", phase_forward_time, model, dev, batch=16, n=8192, reps=10)
+    fwd_folded = phase("forward-folded", phase_forward_time, folded, dev, batch=16, n=8192,
+                       reps=10, tag="forward-folded")
     rooms = [make_synthetic_scene(150_000, seed=200 + s) for s in range(4)]
     parity = phase("train-parity", phase_train_parity, dev, rooms, n=8192)
     batches, t_data = train_batches(rooms, batch=16, npoints=8192, count=23)
@@ -1715,6 +1924,8 @@ def main() -> int:
     del geom
     phase("device-times", phase_device_times, rep)
     fwd_device_ms = phase_forward_device(model, dev, batch=16, n=8192)
+    folded_device_ms = phase_forward_device(folded, dev, batch=16, n=8192,
+                                            what="eval forward, BN folded")
     attn_fwd_device_ms = phase_forward_device(attn_model, dev, batch=16, n=8192)
     fwd_after = phase_forward_time(model, dev, batch=16, n=8192, reps=10,
                                    tag="forward after the profiler")
@@ -1733,7 +1944,8 @@ def main() -> int:
                f"{r['library_ms']:.4f} ms, device {r['library_device_ms']:.4f}")
         trainer_launches = " ".join(f"{tag}={run['launches'][name]}"
                                     for tag, run in trained["runs"].items())
-        log(f"[report] {name:21s} launches={launches:4d} (trainer window: {trainer_launches}) "
+        log(f"[report] {name:21s} launches={launches:4d} (serve-resident window: "
+            f"{resident['launches'][name]}; trainer window: {trainer_launches}) "
             f"{r['shape']}: "
             f"{r['ms']:.4f} ms, device {r['device_ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
             f"library {lib} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}); per level "
@@ -1743,6 +1955,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": CSRC + src,
             "replaces": PALLAS + pallas, "launches": launches,
             "launch_window": "serve" if name in FORWARD_KERNELS else "train",
+            "serve_resident_launches": resident["launches"][name],
             "attention_train_launches": attn_train["launches"][name],
             "trainer_launches": {tag: run["launches"][name]
                                  for tag, run in trained["runs"].items()},
@@ -1771,10 +1984,13 @@ def main() -> int:
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump({"card": smi, "kernels": line, "serve": serve, "forward_b16_ms": fwd["ms"],
+        json.dump({"card": smi, "kernels": line, "serve": serve, "serve_resident": resident,
+                   "forward_b16_ms": fwd["ms"],
                    "forward_b16_peak_bytes": fwd["peak_bytes"],
                    "forward_b16_ms_after_profiler": fwd_after["ms"],
                    "forward_b16_device_ms": fwd_device_ms,
+                   "forward_b16_folded_ms": fwd_folded["ms"],
+                   "forward_b16_folded_device_ms": folded_device_ms,
                    "train_parity": parity, "train": train, "train_data_s": t_data,
                    "attention": {"model": "sem_seg_attention", "forward_b16_ms": attn_fwd["ms"],
                                  "forward_b16_peak_bytes": attn_fwd["peak_bytes"],

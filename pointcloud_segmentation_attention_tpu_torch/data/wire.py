@@ -144,6 +144,15 @@ def pack_chunks(chunks: List[Dict[str, np.ndarray]], spec: WireSpec) -> np.ndarr
     )
 
 
+def exact_div(x, d: float):
+    """``x / d`` correctly rounded on the tensor's device: the divisor is a
+    0-dim tensor there, because CUDA divides by a Python number as a product
+    with its reciprocal, which is not correctly rounded."""
+    import torch
+
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
 def unpack_batch(packed, spec: WireSpec, class_weights=None) -> Dict:
     """(B, row_nbytes) uint8 tensor -> {'points' f32 (B,N,3), 'labels' int32,
     'weights' f32 (class_weight[label] x mask), 'features' f32 (B,N,K) when
@@ -153,19 +162,14 @@ def unpack_batch(packed, spec: WireSpec, class_weights=None) -> Dict:
     is neither contiguous nor, when ``row_nbytes % 4 != 0``, aligned).  q16
     points are ``mn + q * (scale / 65535.0)`` in f32, in that order, and
     the u16 values are read as int16 widened and masked with 0xFFFF.  The
-    divisors are device tensors: CUDA divides by a Python number as a
-    product with its reciprocal, which is not correctly rounded, and the
-    f32 layout's colors / 255 must equal the host's."""
+    divisions are ``exact_div``'s, so the f32 layout's colors / 255 equal
+    the host's."""
     import torch
 
     from pointcloud_segmentation_attention_tpu_torch.train.steps import make_sample_weights
 
     b, n = packed.shape[0], spec.n
     v = {k: t.contiguous() for k, t in _row_views(packed, spec).items()}
-
-    def div(x, d: float):
-        return x / torch.full((), d, dtype=x.dtype, device=x.device)
-
     out = {}
     normals = None
     if spec.layout == "f32":
@@ -177,12 +181,12 @@ def unpack_batch(packed, spec: WireSpec, class_weights=None) -> Dict:
         mn, mx = header[:, None, :3], header[:, None, 3:6]
         q = (v["points"].view(torch.int16).to(torch.int32) & 0xFFFF).float().reshape(b, n, 3)
         scale = torch.where(mx > mn, mx - mn, torch.ones_like(mx))
-        out["points"] = mn + q * div(scale, 65535.0)
+        out["points"] = mn + q * exact_div(scale, 65535.0)
         if spec.use_normals:
-            normals = div(v["normals"].view(torch.int8).reshape(b, n, 3).float(), 127.0)
+            normals = exact_div(v["normals"].view(torch.int8).reshape(b, n, 3).float(), 127.0)
     parts = []
     if spec.use_colors:
-        parts.append(div(v["colors"].reshape(b, n, 3).float(), 255.0))
+        parts.append(exact_div(v["colors"].reshape(b, n, 3).float(), 255.0))
     if normals is not None:
         parts.append(normals)
     labels = v["labels"].to(torch.int32)

@@ -1,7 +1,9 @@
 """Training-side modules of the port: the train state (Adam), the train,
 eval and prediction steps, losses, metrics, schedules, the checkpoint bridge
-to the JAX package and the checkpoint manager.  The trainer entry point is
+to the JAX package and the checkpoint manager, BN folding for serving and
+the device-resident replay.  The trainer entry point is
 ``train/trainer.py``."""
+from pointcloud_segmentation_attention_tpu_torch.train.bn_fold import fold_batchnorm_for_inference
 from pointcloud_segmentation_attention_tpu_torch.train.checkpoints import (
     BestKeeper,
     best_checkpoint,
@@ -15,6 +17,10 @@ from pointcloud_segmentation_attention_tpu_torch.train.checkpoints import (
     save_checkpoint,
     save_jax_checkpoint,
 )
+from pointcloud_segmentation_attention_tpu_torch.train.device_replay import (
+    DeviceReplay,
+    make_resident_train_step,
+)
 from pointcloud_segmentation_attention_tpu_torch.train.steps import (
     seg_eval_step,
     seg_predict_step,
@@ -23,7 +29,9 @@ from pointcloud_segmentation_attention_tpu_torch.train.steps import (
 )
 from pointcloud_segmentation_attention_tpu_torch.train.train_state import TrainState
 
-__all__ = ["BestKeeper", "TrainState", "best_checkpoint", "export_jax_state",
-           "export_jax_variables", "latest_checkpoint", "load_jax_checkpoint", "load_jax_state",
-           "load_jax_variables", "restore_checkpoint", "save_checkpoint", "save_jax_checkpoint",
-           "seg_eval_step", "seg_predict_step", "seg_predict_step_packed", "seg_train_step"]
+__all__ = ["BestKeeper", "DeviceReplay", "TrainState", "best_checkpoint", "export_jax_state",
+           "export_jax_variables", "fold_batchnorm_for_inference", "latest_checkpoint",
+           "load_jax_checkpoint", "load_jax_state", "load_jax_variables",
+           "make_resident_train_step", "restore_checkpoint", "save_checkpoint",
+           "save_jax_checkpoint", "seg_eval_step", "seg_predict_step", "seg_predict_step_packed",
+           "seg_train_step"]

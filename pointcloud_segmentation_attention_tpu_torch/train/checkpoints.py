@@ -31,6 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from pointcloud_segmentation_attention_tpu_torch.train.bn_fold import FoldedBatchNorm
 from pointcloud_segmentation_attention_tpu_torch.train.train_state import TrainState
 
 _SECTIONS = ("params", "batch_stats")
@@ -50,10 +51,16 @@ def _jax_keys(model: nn.Module) -> Dict[str, str]:
 
 
 def export_jax_variables(model: nn.Module) -> Dict[str, np.ndarray]:
-    """The model's parameters and BN statistics under the JAX flat keys."""
+    """The model's parameters and BN statistics under the JAX flat keys; a
+    BN folded away (``train/bn_fold.py``) as the JAX fold's neutral
+    entries."""
     state = model.state_dict()
-    return {k: state[name].detach().cpu().numpy().copy()
+    flat = {k: state[name].detach().cpu().numpy().copy()
             for k, name in _jax_keys(model).items()}
+    for name, mod in model.named_modules():
+        if isinstance(mod, FoldedBatchNorm):
+            flat.update(mod.jax_entries(name.replace(".", "/")))
+    return flat
 
 
 def load_jax_variables(flat: Dict[str, np.ndarray], model: nn.Module) -> nn.Module:

@@ -2,7 +2,9 @@
 
 The counterpart of the JAX package's ``train/trainer.py``: ``train(config)``
 replays precomputed chunks (``input='npz'``) or the packed-record store
-(``input='packed'``) through a prefetch thread, runs ``seg_train_step`` on
+(``input='packed'``) through a prefetch thread, or keeps that store on the
+device and sends only each step's row indices (``input='resident'`` or
+``device_replay=True``, ``train/device_replay.py``), runs ``seg_train_step`` on
 one device, accumulates the epoch's loss, accuracy and confusion matrix on
 the device and fetches them once an epoch, validates every
 ``n_epochs_to_val`` epochs, keeps the best-val-mIoU checkpoint and writes
@@ -11,9 +13,9 @@ periodic ones.  Checkpoints and logs have the JAX package's formats.
 Run it as ``python -m pointcloud_segmentation_attention_tpu_torch.train.trainer
 --device=cuda|cpu --data_root=... [--<TrainConfig field>=...]``.
 
-Not ported yet, each raising ``NotImplementedError``: the device-resident
-input modes (``input='resident'|'sampler'``, ``device_replay``), ``remat``,
-``compute_dtype='bfloat16'`` and more than one device.
+Not ported yet, each raising ``NotImplementedError``: the on-device chunk
+sampler (``input='sampler'``), ``remat``, ``compute_dtype='bfloat16'`` and
+more than one device.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from pointcloud_segmentation_attention_tpu_torch.data.scannet import packstore, 
 from pointcloud_segmentation_attention_tpu_torch.data.scannet.scenes import read_split
 from pointcloud_segmentation_attention_tpu_torch.data.wire import WireSpec, split_wire_batch
 from pointcloud_segmentation_attention_tpu_torch.device import resolve
-from pointcloud_segmentation_attention_tpu_torch.train import schedules, steps
+from pointcloud_segmentation_attention_tpu_torch.train import device_replay, schedules, steps
 from pointcloud_segmentation_attention_tpu_torch.train.checkpoints import (
     BestKeeper,
     latest_checkpoint,
@@ -103,10 +105,10 @@ def resolve_input_mode(config: TrainConfig) -> str:
 
 def _refuse_unported(config: TrainConfig, mode: str) -> None:
     _refuse_mixed_precision(config)
-    if mode in ("resident", "sampler") or config.device_replay:
+    if mode == "sampler":
         raise NotImplementedError(
-            f"input={mode!r}: the device-resident input modes (train/device_replay.py, "
-            "train/device_sampler.py) are not ported yet (ROADMAP Queue 1 item 3)")
+            "input='sampler': the on-device chunk sampler (train/device_sampler.py) is not "
+            "ported yet (ROADMAP Queue 1 item 3)")
     if config.remat != "none":
         raise NotImplementedError(
             f"remat={config.remat!r}: activation rematerialisation is not ported yet "
@@ -137,16 +139,43 @@ def _precomputed_epochs(precompute_dir: str, scenes) -> int:
     return n
 
 
+def _pack_reader(config: TrainConfig, wire_spec, train_scenes, epochs: int):
+    """The pack store of ``wire_spec`` beside the precomputed chunks, written
+    where it is missing."""
+    pack_dir = os.path.join(
+        config.precompute_dir,
+        f"pack_{wire_spec.layout}_c{int(wire_spec.use_colors)}"
+        f"n{int(wire_spec.use_normals)}_p{wire_spec.n}")
+    packstore.write_pack_from_npz(config.precompute_dir, pack_dir, epochs, train_scenes,
+                                  wire_spec)
+    return packstore.PackReader(pack_dir)
+
+
+def _resident_replay(config: TrainConfig, reader, wire_spec, dev) -> device_replay.DeviceReplay:
+    """The whole pack store on the device, after the budget check."""
+    total_mb = device_replay.corpus_nbytes(reader.epochs * len(reader.scenes),
+                                           wire_spec) / 2**20
+    if total_mb > config.device_replay_budget_mb:
+        raise ValueError(
+            f"packed corpus is {total_mb:.0f} MB > device_replay_budget_mb="
+            f"{config.device_replay_budget_mb} — raise the budget or disable device_replay")
+    corpus = np.concatenate([reader._epoch_rows(e) for e in range(reader.epochs)])
+    return device_replay.DeviceReplay(corpus, wire_spec, epoch_len=len(reader.scenes),
+                                      device=dev)
+
+
+def _resident_indices(replay: device_replay.DeviceReplay, config: TrainConfig, dev):
+    """The endless stream of ``{'resident_idx': (B,) int32}``, pinned on a
+    card so the step copies it without a host sync."""
+    for idx in replay.index_stream(config.batch_size, seed=config.seed):
+        t = torch.from_numpy(idx)
+        yield {"resident_idx": t.pin_memory() if dev.type == "cuda" else t}
+
+
 def _host_batches(config: TrainConfig, mode: str, wire_spec, train_scenes, epochs: int):
     """The endless stream of host (numpy) training batches of ``mode``."""
     if mode == "packed":
-        pack_dir = os.path.join(
-            config.precompute_dir,
-            f"pack_{wire_spec.layout}_c{int(wire_spec.use_colors)}"
-            f"n{int(wire_spec.use_normals)}_p{wire_spec.n}")
-        packstore.write_pack_from_npz(config.precompute_dir, pack_dir, epochs, train_scenes,
-                                      wire_spec)
-        reader = packstore.PackReader(pack_dir)
+        reader = _pack_reader(config, wire_spec, train_scenes, epochs)
         _, n_splits = WireSpec.from_format(config.wire_format, n=config.n_points,
                                            use_colors=config.use_colors,
                                            use_normals=config.use_normals)
@@ -188,14 +217,30 @@ def train(config: TrainConfig, max_steps: Optional[int] = None,
     bn = functools.partial(schedules.scannet_bn_momentum, batch_size=config.batch_size,
                            n_train_scenes=n_train)
     wire_spec = _make_wire_spec(config)
-    if mode == "packed" and wire_spec is None:
-        # The packed store defaults to the q16 records.
+    if mode in ("packed", "resident") and wire_spec is None:
+        # The packed record paths default to the q16 records.
         wire_spec = WireSpec(n=config.n_points, layout="q16", use_colors=config.use_colors,
                              use_normals=config.use_normals)
     epochs_avail = _precomputed_epochs(config.precompute_dir, train_scenes)
+    step_kwargs = dict(bn_schedule=bn, num_classes=config.num_classes, remat=config.remat)
+    if mode == "resident":
+        replay = _resident_replay(
+            config, _pack_reader(config, wire_spec, train_scenes, epochs_avail), wire_spec, dev)
+        resident_step = device_replay.make_resident_train_step(
+            wire_spec, augment=config.resident_augment, **step_kwargs)
+        source = _resident_indices(replay, config, dev)
 
-    train_iter = pipeline.prefetch(
-        _host_batches(config, mode, wire_spec, train_scenes, epochs_avail), depth=4)
+        def train_step(state, batch):
+            return resident_step(state, replay.device_corpus, batch["resident_idx"],
+                                 config.seed)
+    else:
+        source = _host_batches(config, mode, wire_spec, train_scenes, epochs_avail)
+
+        def train_step(state, batch):
+            return steps.seg_train_step(state, batch, config.seed, wire_spec=wire_spec,
+                                        **step_kwargs)
+
+    train_iter = pipeline.prefetch(source, depth=4)
     try:
         batch = next(train_iter)
         model = select_model(config, device=dev,
@@ -206,14 +251,14 @@ def train(config: TrainConfig, max_steps: Optional[int] = None,
                     or latest_checkpoint(config.ckpt_dir, prefix="best"))
             if ckpt is not None:
                 restore_checkpoint(ckpt, state)
-        return _train_loop(config, state, batch, train_iter, bn, wire_spec, val_scenes,
-                           n_train, max_steps, max_seconds)
+        return _train_loop(config, state, batch, train_iter, train_step, wire_spec,
+                           val_scenes, n_train, max_steps, max_seconds)
     finally:
         train_iter.close()
 
 
-def _train_loop(config, state, batch, train_iter, bn, wire_spec, val_scenes, n_train,
-                max_steps, max_seconds) -> dict:
+def _train_loop(config, state, batch, train_iter, train_step, wire_spec, val_scenes,
+                n_train, max_steps, max_seconds) -> dict:
     logger = MetricLogger(config.log_dir, "train")
     best = BestKeeper(config.ckpt_dir)
     train_miou = StreamingMeanIoU(config.num_classes)
@@ -229,9 +274,7 @@ def _train_loop(config, state, batch, train_iter, bn, wire_spec, val_scenes, n_t
             if max_seconds is not None and time.perf_counter() - train_t0 > max_seconds:
                 step_idx -= 1  # this step did not run
                 break
-            state, m = steps.seg_train_step(state, batch, config.seed, bn_schedule=bn,
-                                             num_classes=config.num_classes,
-                                             remat=config.remat, wire_spec=wire_spec)
+            state, m = train_step(state, batch)
             t = time.perf_counter()
             batch = next(train_iter)
             wait_s += time.perf_counter() - t

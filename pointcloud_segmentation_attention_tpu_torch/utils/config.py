@@ -5,9 +5,9 @@ fields, defaults and JSON, so a ``config.json`` written by either package
 loads in the other.  The device is not a field: it is a keyword of
 ``train.trainer.train`` and ``make_eval_state`` and the ``--device`` flag of
 ``train.trainer.main``.  Fields of paths the port does not run yet
-(``input='resident'|'sampler'``, ``device_replay``, ``compute_dtype=
-'bfloat16'``, ``remat``, ``n_devices`` > 1) are kept so such configs load;
-``train`` raises ``NotImplementedError`` for them.
+(``input='sampler'``, ``compute_dtype='bfloat16'``, ``remat``,
+``n_devices`` > 1) are kept so such configs load; ``train`` raises
+``NotImplementedError`` for them.
 """
 from __future__ import annotations
 
@@ -36,7 +36,8 @@ class TrainConfig:
     #   'npz'      — replay precomputed npz chunks (data/scannet/precompute.py),
     #   'packed'   — replay the packed-record store, one u8 buffer per batch
     #                (data/scannet/packstore.py, data/wire.py),
-    #   'resident' — the packed corpus resident on the device (not ported),
+    #   'resident' — the packed corpus resident on the device, a (B,) index a
+    #                step (train/device_replay.py),
     #   'sampler'  — raw scenes on the device, chunks cut there (not ported),
     #   'auto'     — derived from wire_format and device_replay.
     input: str = "auto"
@@ -44,13 +45,15 @@ class TrainConfig:
     # device) or a packed format: 'packed', 'packed_q16', optionally with an
     # 'xK' suffix that splits the buffer into K byte-column slices.
     wire_format: str = "f32"
-    # The packed corpus resident on the device, and its budget (not ported).
+    # The packed corpus resident on the device, and its budget.
     device_replay: bool = False
     device_replay_budget_mb: int = 4096
-    # The sampler mode's budget for the resident raw scenes, its val-chunk
-    # cache and its per-step rotation (not ported).
+    # The sampler mode's budget for the resident raw scenes and its val-chunk
+    # cache (not ported).
     sampler_budget_mb: int = 8192
     cache_val_chunks: bool = True
+    # A fresh z-rotation per sample and step on the device (resident and
+    # sampler modes).
     resident_augment: bool = False
     # model
     model: str = "sem_seg_features"

@@ -11,6 +11,12 @@ activities):
 2. ``serve``: one synthetic 150k-point room through the whole serving path
    (chunk, predict in batches, stitch), with the host time of each stage on
    the host clock.
+   ``serve_resident``: three such rooms through ``ResidentSceneServer`` (q16,
+   two rooms in flight) after a warm-up room; before the window, one room
+   stage by stage: the host stage (pack, decode, chunk count) on the host clock,
+   then upload, chunker (decode included), forwards, stitch and the label
+   fetch between CUDA events on one stream (each span includes any wait
+   for the host to queue it).
 3. ``train``: ``STEPS`` training steps (``seg_train_step``) at B16 x 8192 on
    batches of random chunks of synthetic rooms, made before the window.
 
@@ -42,6 +48,7 @@ from pointcloud_segmentation_attention_tpu_torch.data.scannet.chunks import samp
 from pointcloud_segmentation_attention_tpu_torch.data.scannet.scenes import (
     make_synthetic_scene,
 )
+from pointcloud_segmentation_attention_tpu_torch.eval import resident_serving as rs
 from pointcloud_segmentation_attention_tpu_torch.eval.full_scene import (
     make_predict_fn,
     predict_scene_chunks,
@@ -128,6 +135,52 @@ def _print(title: str, res: dict) -> None:
         print(f"     {k['ms']:9.3f} ms {100 * k['share_of_busy']:5.1f} %  {k['name']}", flush=True)
 
 
+def resident_stages(server: rs.ResidentSceneServer, scene: dict) -> dict:
+    """One room through the resident pipeline's pieces, one after another:
+    the host stage's pack, ``decode_host`` and ``chunk_count`` ms (host
+    clock), then upload, chunker, forwards, stitch and fetch ms between CUDA
+    events on the current stream."""
+    dev = server.device
+    points = scene["points"]
+    n = len(points)
+    n_pad = server._n_pad(n)
+    layout = server._layout(n_pad)
+    t0 = time.perf_counter()
+    buf = layout.pack(points, scene["colors"], scene["normals"])
+    t1 = time.perf_counter()
+    decoded = layout.decode_host(buf)["points"][:n]
+    t2 = time.perf_counter()
+    x = server._slots(rs.chunk_count(decoded, server.npoints, server.chunk_size, server.margin))
+    t3 = time.perf_counter()
+    host = {"pack_ms": (t1 - t0) * 1e3, "decode_host_ms": (t2 - t1) * 1e3,
+            "chunk_count_ms": (t3 - t2) * 1e3, "stage_ms": (t3 - t0) * 1e3}
+    b = server.batch_size
+    x_cap, nb = rs._bucket(x, 4 * b), -(-x // b)
+    predict = rs.make_resident_predict_step(server.model, layout, b, server.npoints)
+    stitch = rs.make_stitch(n_pad)
+    pinned = torch.from_numpy(buf).pin_memory()
+    out = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    ev[0].record()
+    dbuf = pinned.to(dev, non_blocking=True)
+    ev[1].record()
+    decoded = rs._decode_scene(dbuf, layout)
+    idx, mask, _ = rs._chunk_points(decoded["points"], n, x_cap, server.npoints, server.seed,
+                                    server.chunk_size, server.margin)
+    ev[2].record()
+    labels = torch.cat([predict(decoded, idx[i * b:(i + 1) * b]) for i in range(nb)])
+    ev[3].record()
+    stitched = stitch(labels, idx[:nb * b], mask[:nb * b])
+    ev[4].record()
+    out.copy_(stitched[:n], non_blocking=True)
+    ev[5].record()
+    ev[5].synchronize()
+    names = ("upload_ms", "chunker_ms", "forwards_ms", "stitch_ms", "fetch_ms")
+    spans = {k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(names)}
+    return {**host, **spans, "batches": nb, "upload_bytes": len(buf)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", default="sem_seg_features", help="registry name")
@@ -185,6 +238,31 @@ def main() -> int:
     print(f"   host stages: chunk {stages['chunk_ms']:.1f} ms, predict + stitch "
           f"{stages['predict_and_stitch_ms']:.1f} ms", flush=True)
 
+    # Resident serving: one room stage by stage, then three pipelined.
+    rooms = [dict(make_synthetic_scene(SCENE_POINTS, seed=SEED + 10 + s), scene_name=str(s))
+             for s in range(4)]
+    server = rs.ResidentSceneServer(model, NPOINTS, batch_size=BATCH, layout="q16",
+                                    pipeline_depth=2, use_colors=use_feats,
+                                    use_normals=use_feats, device=dev)
+    server.predict_scene(rooms[0])
+    parts = resident_stages(server, rooms[1])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        served = list(server.predict_scenes(iter(rooms[1:])))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    res = device_breakdown(prof, wall)
+    n_res = sum(len(labels) for _, labels in served)
+    res.update(parts, rooms=len(served), points=n_res, per_room_ms=wall * 1e3 / len(served),
+               points_per_s=n_res / wall)
+    prof.export_chrome_trace(os.path.join(OUT, f"trace_serve_resident{suffix}.json"))
+    _print(f"serve resident, {len(served)} rooms ({n_res} points, q16, pipelined)", res)
+    print("   one room stage by stage: " + ", ".join(
+        f"{k} {parts[k]:.2f}" for k in ("stage_ms", "pack_ms", "decode_host_ms",
+                                        "chunk_count_ms", "upload_ms", "chunker_ms",
+                                        "forwards_ms", "stitch_ms", "fetch_ms"))
+          + f" ({parts['batches']} batches, {parts['upload_bytes']} bytes uploaded)", flush=True)
+
     # Training: batches of random chunks, made before the window.
     rooms = [make_synthetic_scene(SCENE_POINTS, seed=SEED + 3 + s) for s in range(2)]
     brng = np.random.RandomState(SEED)
@@ -219,12 +297,15 @@ def main() -> int:
                           check=True).stdout.strip().splitlines()[0]
     print(card)
     result = {"device": torch.cuda.get_device_name(0), "card": card, "model": name,
-              "forward": fwd, "serve": srv, "train": trn, "batch": BATCH, "npoints": NPOINTS}
+              "forward": fwd, "serve": srv, "serve_resident": res, "train": trn,
+              "batch": BATCH, "npoints": NPOINTS}
     with open(os.path.join(OUT, f"trace_breakdown{suffix}.json"), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps({"model": name, "forward_ms": fwd["per_forward_ms"],
                       "forward_busy_share": fwd["device_busy_share"],
                       "serve_busy_share": srv["device_busy_share"],
+                      "serve_resident_points_per_s": res["points_per_s"],
+                      "serve_resident_busy_share": res["device_busy_share"],
                       "train_step_ms": trn["per_step_ms"],
                       "train_busy_share": trn["device_busy_share"]}))
     return 0

@@ -211,15 +211,32 @@ def test_resolve_input_mode_matches_jax(case):
         outcome(jtrainer.resolve_input_mode, JConfig(**case))
 
 
-@pytest.mark.parametrize("over,item", [
-    (dict(input="resident"), "item 3"), (dict(input="sampler"), "item 3"),
-    (dict(device_replay=True), "item 3"), (dict(remat="full"), "item 3"),
-    (dict(n_devices=2), "item 7"), (dict(compute_dtype="bfloat16"), "item 4"),
+@pytest.mark.parametrize("over,message", [
+    (dict(input="sampler"), "sampler.*device_sampler.py.*ROADMAP Queue 1 item 3"),
+    (dict(remat="full"), "ROADMAP Queue 1 item 3"),
+    (dict(n_devices=2), "ROADMAP Queue 1 item 7"),
+    (dict(compute_dtype="bfloat16"), "ROADMAP Queue 1 item 4"),
 ])
-def test_unported_paths_raise(tmp_path, over, item):
+def test_unported_paths_raise(tmp_path, over, message):
     cfg = TrainConfig(data_root=str(tmp_path), **over)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
+    with pytest.raises(NotImplementedError, match=message):
         ttrainer.train(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("over", [dict(input="resident"), dict(device_replay=True)],
+                         ids=["resident", "device_replay"])
+def test_resident_configs_train_one_step(dataset, over):
+    """The device-resident corpus (``train/device_replay.py``): with the
+    default wire_format the records are the q16 pack store's, as in JAX's
+    ``test_resident_input_mode_default_wire``."""
+    d, base, init = dataset
+    cfg = TrainConfig(**{**base, "log_dir": str(d / ("one_" + "_".join(map(str, over))))},
+                      **over)
+    jsave_checkpoint(cfg.ckpt_dir, init, 0)
+    summary = ttrainer.train(cfg, max_steps=1, device="cpu")
+    assert summary["final_step"] == 1
+    assert os.path.exists(os.path.join(base["precompute_dir"], "pack_q16_c1n1_p128",
+                                       "meta.json"))
 
 
 def test_train_on_cuda_without_a_card_raises(tmp_path):
