@@ -34,11 +34,21 @@ Phases (each raises on failure; the script then exits non-zero):
                    card, on the card through the plain ops, on the CPU, and a
                    float64 CPU reference of the gradients.  See
                    ``phase_train_parity`` for what is compared.
+   sampler      -- ``ResidentScenes`` of four 150k-point rooms on the card
+                   and on the CPU; ``sample_chunk_batch`` at B16 x 8192 with
+                   the same draws on both, occupancy 'fast' and 'exact',
+                   with the kept box: equal bit for bit; timed beside its
+                   byte bound (its device-only time after device-times).
 6. train        -- B16 x 8192 batches of random chunks (``sample_random_chunk``
                    then ``make_batch``) from synthetic 150k-point rooms; launch
                    counters zeroed just before the timed steps and read just
                    after: all seven kernels launched; every loss finite; five
                    steps on one batch bring its loss below the first.
+   remat        -- one B16 x 8192 ``seg_train_step`` from the same weights
+                   and batch, dropout on, with ``remat`` 'none', 'dots' and
+                   'full': loss, gradients, new parameters and BN statistics
+                   within ``phase_train_parity``'s card limits of 'none''s
+                   (bit-identical is reported); step time and peak memory.
    trainer      -- the port's workflow through its entry points
                    (``phase_trainer``): a synthetic store of 32 + 2 rooms of
                    150k points, ``precompute_cli`` (2 train epochs, val) and
@@ -47,7 +57,11 @@ Phases (each raises on failure; the script then exits non-zero):
                    with ``input='npz'`` and once with ``input='packed'``
                    (``packed_q16``), and once with ``input='resident'`` (the
                    q16 store on the card, each step's rows equal to the
-                   packed run's byte for byte): launch counters zeroed just
+                   packed run's byte for byte), and once with
+                   ``input='sampler'`` (raw rooms on the card, no
+                   precompute directory may appear; CUDA events around
+                   ``sample_chunk_batch`` give its share of the step):
+                   launch counters zeroed just
                    before and read just after each run, all seven kernels
                    launched,
                    every logged loss finite, the step count as configured,
@@ -59,6 +73,9 @@ Phases (each raises on failure; the script then exits non-zero):
                    ``benchmark.evaluate`` equal to the in-memory mIoU (f32
                    and resident), and a
                    crop of one room on the card and the CPU (>= 99.9 %).
+   recipe       -- ``run_zero_precompute`` at the JAX results' size (8 + 2
+                   rooms of 16k points, B4 x 2048, 100 epochs): offline mIoU
+                   beside JAX's 0.795 (reported; fails on a non-finite loss).
    The attention slice (``ATTENTION_MODELS``, fed xyz only, as the
    reference's attention ablation ran them):
    attention-model -- ``sem_seg_attention``, ``sem_seg_attention_single_layer``
@@ -190,6 +207,8 @@ from pointcloud_segmentation_attention_tpu_torch.train import (  # noqa: E402
 )
 from pointcloud_segmentation_attention_tpu_torch.train import steps as train_steps  # noqa: E402
 from pointcloud_segmentation_attention_tpu_torch.train import device_replay  # noqa: E402
+from pointcloud_segmentation_attention_tpu_torch.train import device_sampler  # noqa: E402
+from pointcloud_segmentation_attention_tpu_torch.recipes import run_zero_precompute  # noqa: E402
 from pointcloud_segmentation_attention_tpu_torch.train.bn_fold import (  # noqa: E402
     fold_batchnorm_for_inference,
 )
@@ -1521,23 +1540,179 @@ def phase_train(dev, batches, steps: int, warmup: int, name: str = "sem_seg_feat
     log(f"[{tag}] launches in the {tag} window: {json.dumps(launches)}")
     return res
 
+# ---- the zero-precompute path: the sampler, remat, the recipe ------------------------
+
+
+def sampler_work(scenes, batch: int, npoints: int) -> float:
+    """Bytes one ``sample_chunk_batch`` call must move: every try's stripe
+    (points, labels and run starts, 20 B a row), each sample's x-cell window
+    once, the kept stripe's points again, and the chunk out (points, labels,
+    weights, features)."""
+    stripes = batch * device_sampler.MAX_TRIES * scenes.sub_len * 20
+    windows = batch * scenes.max_len * 4
+    chunk = batch * npoints * (12 + 4 + 4 + 4 * 6 + 3 + 12)
+    return float(stripes + windows + batch * scenes.sub_len * 12 + chunk)
+
+
+def phase_sampler(dev, rooms, batch: int, npoints: int, reps: int) -> dict:
+    """``ResidentScenes`` of ``rooms`` on the card and on the CPU; one
+    ``sample_chunk_batch`` at B x npoints with the same ``draws`` (made on
+    the CPU) on both, for ``occupancy`` 'fast' and 'exact', ``with_box``:
+    points, labels, weights, features (colors divided correctly rounded on
+    both) and the kept box bit-identical.  Times the card's call (CUDA
+    events) and the CPU's, beside the call's byte bound."""
+    t0 = time.perf_counter()
+    card = device_sampler.ResidentScenes(rooms, device=dev)
+    torch.cuda.synchronize()
+    t_upload = time.perf_counter() - t0
+    cpu = device_sampler.ResidentScenes(rooms, device="cpu")
+    ids = (torch.arange(batch) % len(rooms)).to(torch.int32)
+    draws = device_sampler.make_draws(cpu, ids, npoints, torch.Generator().manual_seed(5))
+    ids_dev, draws_dev = ids.to(dev), tuple(d.to(dev) for d in draws)
+    nbytes = sampler_work(card, batch, npoints)
+    res = dict(rooms=len(rooms), points=int(card.lengths.sum()), max_len=card.max_len,
+               sub_len=card.sub_len, batch=batch, npoints=npoints, upload_s=t_upload,
+               bytes=nbytes, bound_ms=bound(nbytes, 0.0)[0])
+    for occ in ("fast", "exact"):
+        got = device_sampler.sample_chunk_batch(card, ids_dev, draws_dev, npoints,
+                                                occupancy=occ, with_box=True)
+        t0 = time.perf_counter()
+        want = device_sampler.sample_chunk_batch(cpu, ids, draws, npoints, occupancy=occ,
+                                                 with_box=True)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        for k in want:
+            check_equal(f"sampler {occ} {k}", got[k], want[k])
+        res[occ] = dict(ok=int(want["chunk_ok"].sum()), cpu_ms=cpu_ms, ms=time_ms(
+            functools.partial(device_sampler.sample_chunk_batch, card, ids_dev, draws_dev,
+                              npoints, occupancy=occ), reps, burst=1))
+    log(f"[sampler] {len(rooms)} rooms, {res['points']} points on the card in "
+        f"{t_upload:.2f} s (max_len {card.max_len}, sub_len {card.sub_len}); B{batch} x "
+        f"{npoints} chunks with the same draws equal the CPU's bit for bit (fast: "
+        f"{res['fast']['ok']}/{batch} valid, exact: {res['exact']['ok']}/{batch}); "
+        f"sample_chunk_batch fast {res['fast']['ms']:.3f} ms, exact {res['exact']['ms']:.3f} "
+        f"ms on the card (CUDA events; CPU {res['fast']['cpu_ms']:.1f} / "
+        f"{res['exact']['cpu_ms']:.1f} ms); bound {res['bound_ms']:.4f} ms "
+        f"({nbytes / 1e6:.1f} MB)")
+    # For the device-times phase: the fast call's device-only time.
+    res["call"] = functools.partial(device_sampler.sample_chunk_batch, card, ids_dev, draws_dev,
+                                    npoints)
+    return res
+
+
+def _step_state(model, dev, batch: dict, remat: str, seed: int):
+    """One ``seg_train_step`` of a copy of ``model`` on ``dev``: (the state,
+    loss, gradients, parameters and BN statistics on the CPU)."""
+    state = TrainState(copy.deepcopy(model).to(dev))
+    _, m = seg_train_step(state, batch, seed, remat=remat)
+    grads = {k: p.grad.detach().cpu().clone() for k, p in state.model.named_parameters()}
+    params = {k: p.detach().cpu().clone() for k, p in state.model.named_parameters()}
+    stats = {k: v.detach().cpu().clone() for k, v in state.model.named_buffers()}
+    return state, float(m["loss"]), grads, params, stats
+
+
+def phase_remat(dev, batches, reps: int) -> dict:
+    """One B16 x 8192 ``seg_train_step`` of the flagship from the same
+    seeded weights and batch, dropout on with one seed, with ``remat``
+    'none', 'dots' and 'full': loss, gradients, new parameters and BN
+    statistics of 'dots' and 'full' against 'none' within
+    ``phase_train_parity``'s card limits (gradients and parameters rtol
+    1e-3, atol 1e-5 x max|g|; BN rtol 1e-4, atol 1e-5), and whether they
+    are bit-identical.  Then ``reps`` timed steps each on fresh batches
+    (CUDA events, after one warm-up step): median step and peak memory."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = models.seeded_model("sem_seg_features", seed=0, device="cpu")
+    if model.dp1.rate != 0.5:
+        raise AssertionError("remat phase: dropout is not on")
+    res = {}
+    for remat in ("none", "dots", "full"):
+        state, loss, g, p, bn = _step_state(model, dev, batches[0], remat, 7)
+        if remat == "none":
+            loss0, g0, p0, bn0 = loss, g, p, bn
+        same = (loss == loss0 and all(torch.equal(g[k], g0[k]) for k in g0)
+                and all(torch.equal(p[k], p0[k]) for k in p0)
+                and all(torch.equal(bn[k], bn0[k]) for k in bn0))
+        if not same:
+            np.testing.assert_allclose(loss, loss0, rtol=1e-6, err_msg=f"remat {remat} loss")
+            for k in g0:
+                scale = float(g0[k].abs().max())
+                check_close(f"remat {remat} grad {k}", g[k], g0[k],
+                            dict(rtol=1e-3, atol=1e-5 * scale))
+                check_close(f"remat {remat} param {k}", p[k], p0[k],
+                            dict(rtol=1e-3, atol=1e-5 * max(scale, 1e-30)))
+            for k in bn0:
+                check_close(f"remat {remat} BN {k}", bn[k], bn0[k], dict(rtol=1e-4, atol=1e-5))
+        seg_train_step(state, batches[1], 7, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        events = []
+        for b in batches[2:2 + reps]:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            seg_train_step(state, b, 7, remat=remat)
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        step_ms = [a.elapsed_time(b) for a, b in events]
+        res[remat] = dict(loss=loss, bit_identical_to_none=same, step_ms=step_ms,
+                          step_ms_median=float(np.median(step_ms)),
+                          peak_bytes=torch.cuda.max_memory_allocated())
+        del state
+        log(f"[remat] {remat}: B16 x 8192 step, dropout on: loss {loss:.7f}, "
+            f"{'bit-identical to' if same else 'within the limits of'} 'none' (loss, gradients, "
+            f"new parameters, BN statistics); median step {res[remat]['step_ms_median']:.3f} "
+            f"ms over {reps} (CUDA events), max_memory_allocated "
+            f"{res[remat]['peak_bytes'] / 2**20:.1f} MiB")
+    return res
+
+
+def phase_recipe(dev, epochs: int = 100) -> dict:
+    """``run_zero_precompute`` on the card at the size of the JAX package's
+    ``RESULTS_zero_precompute.json`` (8 train + 2 val rooms of 16k points,
+    B4 x 2048, ``epochs`` epochs): the offline mIoU beside JAX's 0.795 and
+    the trainer's median points/s.  The random streams differ from JAX's, so
+    the mIoU is reported, not held; every logged loss must be finite."""
+    work = tempfile.mkdtemp(prefix=".recipe_smoke_", dir=ROOT)
+    try:
+        t0 = time.perf_counter()
+        out = run_zero_precompute(work, epochs=epochs, device=dev)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    curve = [r["loss"] for r in out["loss_curve"]]
+    if not np.all(np.isfinite(curve + [out["final_loss"]])) or not np.isfinite(
+            out["offline_mean_iou"]):
+        raise AssertionError(f"recipe zero_precompute: non-finite result {out}")
+    out["wall_s"] = wall
+    log(f"[recipe] zero_precompute, {epochs} epochs of 2 steps (B4 x 2048, 8 + 2 rooms of "
+        f"16k points) in {wall:.1f} s: offline mIoU {out['offline_mean_iou']:.4f} (JAX "
+        f"RESULTS_zero_precompute.json: 0.795), best val mIoU {out['best_val_miou']:.4f}, "
+        f"final loss {out['final_loss']:.4f}, median {out['median_points_per_sec']:.0f} "
+        f"points/s")
+    return out
+
 # ---- the trainer entry point, end to end -------------------------------------------
 
 # The resident run reads the q16 store's rows on the card; with the same
 # wire_format as the packed run its validation reads the same batches too.
+# The sampler run reads the raw rooms of the store, no precomputed chunk.
 TRAINER_RUNS = (("npz", dict(input="npz")),
                 ("packed_q16", dict(input="packed", wire_format="packed_q16")),
-                ("resident", dict(input="resident", wire_format="packed_q16")))
+                ("resident", dict(input="resident", wire_format="packed_q16")),
+                ("sampler", dict(input="sampler")))
 
 
 @contextlib.contextmanager
-def timed_train_steps(events: list, host_ms: list, rows: list):
+def timed_train_steps(events: list, host_ms: list, rows: list, sampled: list):
     """CUDA events around every ``seg_train_step`` that ``trainer.train``
     calls, appended to ``events``, and the host milliseconds each call took
     to queue its work, appended to ``host_ms`` (no host sync is added).
     ``rows`` gets each step's packed rows: a packed batch's own, or for the
-    resident corpus the (corpus, index) pair its rows are gathered by."""
+    resident corpus the (corpus, index) pair its rows are gathered by.
+    ``sampled`` gets CUDA events around each ``sample_chunk_batch`` call of
+    the sampler input."""
     inner, gather = train_steps.seg_train_step, device_replay.gather_batch
+    sample = device_sampler.sample_chunk_batch
 
     def timed(state, batch, *args, **kwargs):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1555,11 +1730,21 @@ def timed_train_steps(events: list, host_ms: list, rows: list):
         rows.append((corpus, idx.clone()))
         return gather(corpus, idx, spec)
 
+    def sampling(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = sample(*args, **kwargs)
+        end.record()
+        sampled.append((start, end))
+        return out
+
     train_steps.seg_train_step, device_replay.gather_batch = timed, gathered
+    device_sampler.sample_chunk_batch = sampling
     try:
         yield
     finally:
         train_steps.seg_train_step, device_replay.gather_batch = inner, gather
+        device_sampler.sample_chunk_batch = sample
 
 
 def _host_rows(rows: list) -> list:
@@ -1612,11 +1797,12 @@ def _train_run(dev, cfg: TrainConfig, tag: str, expect_steps: int) -> dict:
     events: list = []
     host_ms: list = []
     rows: list = []
+    sampled: list = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    with timed_train_steps(events, host_ms, rows):
+    with timed_train_steps(events, host_ms, rows, sampled):
         summary = trainer.train(cfg, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1640,6 +1826,10 @@ def _train_run(dev, cfg: TrainConfig, tag: str, expect_steps: int) -> dict:
     if vals:
         _check_restores(dev, cfg, tag, best)
     step_ms = [a.elapsed_time(b) for a, b in events]
+    sample_ms = [a.elapsed_time(b) for a, b in sampled]
+    if cfg.input == "sampler" and len(sample_ms) != expect_steps:
+        raise AssertionError(f"trainer {tag}: {len(sample_ms)} sampler calls in "
+                             f"{expect_steps} steps")
     res = dict(
         input=tag, wall_s=wall, summary=summary, launches=launches,
         launches_per_step={k: v / expect_steps for k, v in launches.items()},
@@ -1651,6 +1841,10 @@ def _train_run(dev, cfg: TrainConfig, tag: str, expect_steps: int) -> dict:
         train_loss=[r["train_loss"] for r in epochs],
         val_miou=[r["val_miou"] for r in vals], val_loss=[r["val_loss"] for r in vals],
         best_checkpoint=best and os.path.basename(best), step_rows=rows)
+    if sample_ms:
+        res.update(sampler_ms=sample_ms, sampler_ms_median=float(np.median(sample_ms)),
+                   sampler_share_median=float(np.median(
+                       [a / (a + b) for a, b in zip(sample_ms, step_ms)])))
     log(f"[trainer] {tag}: {summary['final_step']} steps, {cfg.epochs} epochs, "
         f"{len(vals)} validations, "
         f"{wall:.2f} s wall; points/s per epoch (the trainer's, host pipeline included) "
@@ -1661,7 +1855,9 @@ def _train_run(dev, cfg: TrainConfig, tag: str, expect_steps: int) -> dict:
         f"max_memory_allocated {peak / 2**20:.1f} MiB; train loss "
         f"{' '.join(f'{v:.3f}' for v in res['train_loss'])}, val mIoU "
         f"{' '.join(f'{v:.4f}' for v in res['val_miou'])}"
-        + (f"; {os.path.basename(best)} restores bit for bit" if vals else ""))
+        + (f"; {os.path.basename(best)} restores bit for bit" if vals else "")
+        + (f"; sample_chunk_batch median {res['sampler_ms_median']:.3f} ms (CUDA events), "
+           f"{res['sampler_share_median']:.3f} of sampler + step" if sample_ms else ""))
     log(f"[trainer] {tag}: launches in the trainer window: {json.dumps(launches)}")
     return res
 
@@ -1759,15 +1955,25 @@ def phase_trainer(dev, n_train: int = 32, n_val: int = 2, scene_points: int = 15
 
         base = dict(data_root=root, precompute_dir=pre, batch_size=batch, n_points=npoints,
                     epochs=epochs, n_epochs_to_val=1, save_every_epochs=1, n_devices=1)
+        # The sampler run points at a precompute directory that must never appear.
+        no_pre = os.path.join(work, "sampler_precomputed")
+
+        def run_config(over: dict, **kw) -> TrainConfig:
+            cfg = {**base, **over, **kw}
+            if over["input"] == "sampler":
+                cfg["precompute_dir"] = no_pre
+            return TrainConfig(**cfg)
+
         steps = epochs * (n_train // batch)
         runs, cfgs = {}, {}
         for tag, over in TRAINER_RUNS:
-            cfgs[tag] = TrainConfig(**base, **over, log_dir=os.path.join(work, "logs_" + tag))
+            cfgs[tag] = run_config(over, log_dir=os.path.join(work, "logs_" + tag))
             runs[tag] = _train_run(dev, cfgs[tag], tag, steps)
         # The resident run trains on the packed run's rows, step for step.
         packed_rows = _host_rows(runs["packed_q16"].pop("step_rows"))
         resident_rows = _host_rows(runs["resident"].pop("step_rows"))
         runs["npz"].pop("step_rows")
+        runs["sampler"].pop("step_rows")
         if len(resident_rows) != steps or len(packed_rows) != steps or any(
                 a.tobytes() != b.tobytes() for a, b in zip(packed_rows, resident_rows)):
             raise AssertionError("trainer resident: the gathered rows differ from the "
@@ -1779,12 +1985,17 @@ def phase_trainer(dev, n_train: int = 32, n_val: int = 2, scene_points: int = 15
         # no checkpoints, steady_epochs epochs.
         steady = {}
         for tag, over in TRAINER_RUNS:
-            cfg = TrainConfig(**{**base, "epochs": steady_epochs, "n_epochs_to_val": 10**6,
-                                 "save_every_epochs": 0}, **over,
-                              log_dir=os.path.join(work, "steady_" + tag))
+            cfg = run_config(over, epochs=steady_epochs, n_epochs_to_val=10**6,
+                             save_every_epochs=0, log_dir=os.path.join(work, "steady_" + tag))
             steady[tag] = _train_run(dev, cfg, tag + " steady",
                                      steady_epochs * (n_train // batch))
             steady[tag].pop("step_rows")
+        if os.path.exists(no_pre):
+            raise AssertionError(f"trainer sampler: a precompute directory appeared: {no_pre}")
+        log("[trainer] sampler: no precompute directory appeared; rate against the others, "
+            "validated / steady median points/s: " + "; ".join(
+                f"{tag} {np.median(runs[tag]['points_per_s']):.0f} / "
+                f"{np.median(steady[tag]['points_per_s']):.0f}" for tag, _ in TRAINER_RUNS))
 
         state = trainer.make_eval_state(cfgs["npz"], device=dev)
         restore_checkpoint(best_checkpoint(cfgs["npz"].ckpt_dir, "best"), state)
@@ -1899,10 +2110,13 @@ def main() -> int:
                        reps=10, tag="forward-folded")
     rooms = [make_synthetic_scene(150_000, seed=200 + s) for s in range(4)]
     parity = phase("train-parity", phase_train_parity, dev, rooms, n=8192)
+    sampler = phase("sampler", phase_sampler, dev, rooms, batch=16, npoints=8192, reps=10)
     batches, t_data = train_batches(rooms, batch=16, npoints=8192, count=23)
     log(f"[train] {len(batches)} batches of B16 x 8192 made on the host in {t_data:.1f} s")
     train = phase("train", phase_train, dev, batches, steps=20, warmup=3)
+    remat = phase("remat", phase_remat, dev, batches, reps=5)
     trained = phase("trainer", phase_trainer, dev)
+    recipe = phase("recipe", phase_recipe, dev)
 
     # The attention slice: the three registry models at full width, then the
     # first one's train step against the CPU, its training and its forward.
@@ -1923,6 +2137,9 @@ def main() -> int:
     rep.update(phase("kernels-bwd", phase_kernels_bwd, dev, geom, reps=20))
     del geom
     phase("device-times", phase_device_times, rep)
+    sampler["fast"]["device_ms"] = device_ms(sampler.pop("call"))
+    log(f"[sampler] sample_chunk_batch fast, B16 x 8192: {sampler['fast']['device_ms']:.4f} ms "
+        f"device-only (profiler), bound {sampler['bound_ms']:.4f} ms")
     fwd_device_ms = phase_forward_device(model, dev, batch=16, n=8192)
     folded_device_ms = phase_forward_device(folded, dev, batch=16, n=8192,
                                             what="eval forward, BN folded")
@@ -1996,7 +2213,8 @@ def main() -> int:
                                  "forward_b16_peak_bytes": attn_fwd["peak_bytes"],
                                  "forward_b16_device_ms": attn_fwd_device_ms,
                                  "train_parity": attn_parity, "train": attn_train},
-                   "trainer": trained, "phase_seconds": phase_s,
+                   "trainer": trained, "sampler": sampler, "remat": remat,
+                   "recipe_zero_precompute": recipe, "phase_seconds": phase_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))

@@ -8,11 +8,39 @@ Parameters are created by ``reset_parameters(generator)`` from an explicit
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Sequence
+import threading
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+
+# Where a train-mode BN sends its running-statistics update on this thread:
+# None applies it in place; a list records (bn, batch mean, batch var,
+# momentum) for ``apply_bn_updates``; ``_SKIP`` drops it (a recomputation
+# under activation checkpointing, whose first forward recorded it).
+_bn_sink = threading.local()
+_SKIP = object()
+
+
+@contextlib.contextmanager
+def bn_updates(sink):
+    """Route this thread's train-mode BN updates to ``sink`` (a list that
+    records them, or ``None`` to skip them) while the block runs."""
+    prev = getattr(_bn_sink, "value", None)
+    _bn_sink.value = _SKIP if sink is None else sink
+    try:
+        yield
+    finally:
+        _bn_sink.value = prev
+
+
+def apply_bn_updates(records: List[Tuple["ScheduledBatchNorm", torch.Tensor, torch.Tensor,
+                                         float]]) -> None:
+    """Apply recorded BN updates with the arithmetic of the in-place path."""
+    for bn, mean, var, momentum in records:
+        bn._update(mean, var, momentum)
 
 
 class ScheduledBatchNorm(nn.Module):
@@ -20,7 +48,9 @@ class ScheduledBatchNorm(nn.Module):
     call.  Stock ``nn.BatchNorm`` differs on three counts, all kept here:
     eps is 1e-3; ``momentum`` is the decay, ``ema = m*ema + (1-m)*batch``;
     the running variance takes the biased batch variance.  Eval mode computes
-    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``.
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``.  Inside
+    ``bn_updates(sink)`` the running-statistics update is recorded or
+    skipped instead of applied (activation checkpointing).
     """
 
     def __init__(self, channels: int, eps: float = 1e-3):
@@ -36,13 +66,20 @@ class ScheduledBatchNorm(nn.Module):
             axes = tuple(range(x.dim() - 1))
             mean = x.mean(dim=axes)
             var = x.var(dim=axes, unbiased=False)
-            with torch.no_grad():
-                self.mean.copy_(momentum * self.mean + (1.0 - momentum) * mean)
-                self.var.copy_(momentum * self.var + (1.0 - momentum) * var)
+            sink = getattr(_bn_sink, "value", None)
+            if sink is None:
+                self._update(mean, var, momentum)
+            elif sink is not _SKIP:
+                sink.append((self, mean.detach(), var.detach(), momentum))
         else:
             mean, var = self.mean, self.var
         inv = torch.rsqrt(var + self.eps) * self.scale
         return (x - mean) * inv + self.bias
+
+    def _update(self, mean: torch.Tensor, var: torch.Tensor, momentum: float) -> None:
+        with torch.no_grad():
+            self.mean.copy_(momentum * self.mean + (1.0 - momentum) * mean)
+            self.var.copy_(momentum * self.var + (1.0 - momentum) * var)
 
 
 def _xavier_uniform_(kernel: torch.Tensor, bias: torch.Tensor,

@@ -5,6 +5,7 @@ from pointcloud_segmentation_attention_tpu_torch.ops.geometry import (
     gather_point,
     group_point,
     interpolation_weights,
+    prob_sample,
 )
 from pointcloud_segmentation_attention_tpu_torch.ops.dispatch import (
     ball_query,
@@ -21,6 +22,7 @@ __all__ = [
     "group_point",
     "group_point_with_counts",
     "interpolation_weights",
+    "prob_sample",
     "three_interpolate",
     "three_nn",
 ]

@@ -219,3 +219,15 @@ def interpolation_weights(dist: torch.Tensor, eps: float = 1e-10) -> torch.Tenso
     dist are squared distances, clamped below at ``eps``."""
     inv = 1.0 / dist.clamp_min(eps)
     return inv / inv.sum(dim=-1, keepdim=True)
+
+
+def prob_sample(cdf_weights: torch.Tensor, uniforms: torch.Tensor) -> torch.Tensor:
+    """Weighted categorical sampling by inverse CDF: weights (B, N) >= 0 (not
+    normalised), uniforms (B, M) in [0, 1) -> (B, M) int32 indices, the first
+    index whose running sum reaches ``u * total``, clamped to [0, N-1].
+    The running sum is a float32 ``cumsum`` (exact for integer-valued
+    weights below 2**24)."""
+    cdf = torch.cumsum(cdf_weights.to(torch.float32), dim=-1)
+    targets = uniforms.to(torch.float32) * cdf[..., -1:]
+    idx = torch.searchsorted(cdf.contiguous(), targets.contiguous(), right=False)
+    return idx.clamp(0, cdf_weights.shape[-1] - 1).to(torch.int32)

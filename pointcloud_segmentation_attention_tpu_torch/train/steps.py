@@ -12,12 +12,16 @@ the model's device on the current stream and decoded there.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import contextlib
+import functools
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint
 
+from pointcloud_segmentation_attention_tpu_torch.nn.layers import apply_bn_updates, bn_updates
 from pointcloud_segmentation_attention_tpu_torch.train import losses, metrics, schedules
 from pointcloud_segmentation_attention_tpu_torch.train.train_state import TrainState
 
@@ -44,12 +48,19 @@ def _to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _class_weight_table(class_weights: Tuple[float, ...], device: torch.device) -> torch.Tensor:
+    # Made once per device: a table built from a Python list each call
+    # would be a synchronous host-to-device copy in every step.
+    return torch.tensor(class_weights, dtype=torch.float32, device=device)
+
+
 def make_sample_weights(labels: torch.Tensor, inner_mask: torch.Tensor,
                         class_weights=None) -> torch.Tensor:
     """weight = class_weights[label] * mask, in float32; ``class_weights``
     defaults to ``SCANNET_CLASS_WEIGHTS``."""
-    cw = torch.tensor(SCANNET_CLASS_WEIGHTS if class_weights is None else class_weights,
-                      dtype=torch.float32, device=labels.device)
+    cw = _class_weight_table(tuple(float(w) for w in (
+        SCANNET_CLASS_WEIGHTS if class_weights is None else class_weights)), labels.device)
     return cw[labels.long()] * inner_mask.float()
 
 
@@ -103,6 +114,66 @@ def _batch_metrics(logits: torch.Tensor, labels: torch.Tensor, num_classes: int)
     return preds, {"accuracy": metrics.accuracy(labels, preds, valid), "confusion": confusion}
 
 
+# The matmul outputs that ``remat='dots'`` keeps (``torch.matmul`` on (B, N,
+# K, C) x (C, F) lowers to ``mm``; batched products to ``bmm``); JAX's
+# ``jax.checkpoint_policies.dots_saveable``.  Every other op is recomputed.
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default})
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return (checkpoint.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+@contextlib.contextmanager
+def _entered(*contexts):
+    with contextlib.ExitStack() as stack:
+        for c in contexts:
+            stack.enter_context(c)
+        yield
+
+
+@contextlib.contextmanager
+def _restored(generator: torch.Generator, rng_state: torch.Tensor):
+    """Rewind ``generator`` so that a recomputation draws the first
+    forward's dropout masks."""
+    generator.set_state(rng_state)
+    yield
+
+
+def _loss_and_logits(model: nn.Module, batch: Dict[str, torch.Tensor], bn_momentum: float,
+                     generator: torch.Generator, remat: str):
+    """Train-mode forward and weighted cross entropy, checkpointed per
+    ``remat``.  Under ``'full'`` and ``'dots'`` the forward runs again in
+    the backward; its BN updates are recorded in the first forward and
+    applied by the caller once, and the recomputation skips them and
+    rewinds the dropout generator, so the step equals ``'none'``'s."""
+
+    def run(points, features):
+        logits = model(points, features, bn_momentum=bn_momentum, generator=generator)
+        loss = losses.weighted_softmax_cross_entropy(logits, batch["labels"], batch["weights"])
+        return loss, logits
+
+    if remat == "none":
+        return run(batch["points"], batch.get("features")) + ([],)
+    if remat not in ("full", "dots"):
+        raise ValueError(f"remat must be 'none'|'dots'|'full', got {remat!r}")
+    records: list = []
+    rng_state = generator.get_state()
+
+    def contexts():
+        first, again = ((contextlib.nullcontext(), contextlib.nullcontext()) if remat == "full"
+                        else checkpoint.create_selective_checkpoint_contexts(_dots_saveable))
+        return (_entered(first, bn_updates(records)),
+                _entered(again, bn_updates(None), _restored(generator, rng_state)))
+
+    loss, logits = checkpoint.checkpoint(run, batch["points"], batch.get("features"),
+                                         use_reentrant=False, context_fn=contexts,
+                                         preserve_rng_state=False)
+    return loss, logits, records
+
+
 def seg_train_step(
     state: TrainState,
     batch: Dict,
@@ -123,11 +194,10 @@ def seg_train_step(
     'confusion' (C, C) and the float 'learning_rate' (``state``'s schedule
     at the pre-increment step); no host sync is made.
     After the step each parameter's ``.grad`` holds this step's gradient.
+    ``remat``: 'none', 'full' (the forward and loss recomputed in the
+    backward) or 'dots' (only the matmul outputs kept); all three give the
+    same step.
     """
-    if remat != "none":
-        raise NotImplementedError(
-            f"remat={remat!r}: activation rematerialisation is not ported yet "
-            "(ROADMAP Queue 1 item 3)")
     model = state.model
     dev = _device_of(model)
     batch = expand_wire_batch(_to_device(batch, dev), wire_spec)
@@ -135,10 +205,9 @@ def seg_train_step(
     generator = _dropout_generator(dev, dropout_seed, state.step)
     model.train()
     model.zero_grad(set_to_none=True)
-    logits = model(batch["points"], batch.get("features"), bn_momentum=bn_momentum,
-                   generator=generator)
-    loss = losses.weighted_softmax_cross_entropy(logits, batch["labels"], batch["weights"])
+    loss, logits, bn_records = _loss_and_logits(model, batch, bn_momentum, generator, remat)
     loss.backward()
+    apply_bn_updates(bn_records)
     lr = state.apply_gradients()
     _, out = _batch_metrics(logits.detach(), batch["labels"], num_classes)
     out.update(loss=loss.detach(), learning_rate=lr)

@@ -4,18 +4,21 @@ The counterpart of the JAX package's ``train/trainer.py``: ``train(config)``
 replays precomputed chunks (``input='npz'``) or the packed-record store
 (``input='packed'``) through a prefetch thread, or keeps that store on the
 device and sends only each step's row indices (``input='resident'`` or
-``device_replay=True``, ``train/device_replay.py``), runs ``seg_train_step`` on
-one device, accumulates the epoch's loss, accuracy and confusion matrix on
-the device and fetches them once an epoch, validates every
-``n_epochs_to_val`` epochs, keeps the best-val-mIoU checkpoint and writes
-periodic ones.  Checkpoints and logs have the JAX package's formats.
+``device_replay=True``, ``train/device_replay.py``), or keeps the raw scenes
+on the device and cuts every step's chunks there, validating on chunks cut
+on the fly (``input='sampler'``, ``train/device_sampler.py``: no precompute
+directory is read or written).  It runs ``seg_train_step`` (with the
+configured ``remat``) on one device, accumulates the epoch's loss, accuracy
+and confusion matrix on the device and fetches them once an epoch,
+validates every ``n_epochs_to_val`` epochs, keeps the best-val-mIoU
+checkpoint and writes periodic ones.  Checkpoints and logs have the JAX
+package's formats.
 
 Run it as ``python -m pointcloud_segmentation_attention_tpu_torch.train.trainer
 --device=cuda|cpu --data_root=... [--<TrainConfig field>=...]``.
 
-Not ported yet, each raising ``NotImplementedError``: the on-device chunk
-sampler (``input='sampler'``), ``remat``, ``compute_dtype='bfloat16'`` and
-more than one device.
+Not ported yet, each raising ``NotImplementedError``:
+``compute_dtype='bfloat16'`` and more than one device.
 """
 from __future__ import annotations
 
@@ -31,10 +34,24 @@ import torch
 from pointcloud_segmentation_attention_tpu_torch import models
 from pointcloud_segmentation_attention_tpu_torch.data import pipeline
 from pointcloud_segmentation_attention_tpu_torch.data.scannet import packstore, precompute
-from pointcloud_segmentation_attention_tpu_torch.data.scannet.scenes import read_split
+from pointcloud_segmentation_attention_tpu_torch.data.scannet.chunks import (
+    CHUNK_SIZE,
+    CONTEXT_MARGIN,
+    grid_chunks_for_eval,
+)
+from pointcloud_segmentation_attention_tpu_torch.data.scannet.scenes import (
+    load_scene_mapped,
+    read_split,
+    scene_path,
+)
 from pointcloud_segmentation_attention_tpu_torch.data.wire import WireSpec, split_wire_batch
 from pointcloud_segmentation_attention_tpu_torch.device import resolve
-from pointcloud_segmentation_attention_tpu_torch.train import device_replay, schedules, steps
+from pointcloud_segmentation_attention_tpu_torch.train import (
+    device_replay,
+    device_sampler,
+    schedules,
+    steps,
+)
 from pointcloud_segmentation_attention_tpu_torch.train.checkpoints import (
     BestKeeper,
     latest_checkpoint,
@@ -103,16 +120,8 @@ def resolve_input_mode(config: TrainConfig) -> str:
     return mode
 
 
-def _refuse_unported(config: TrainConfig, mode: str) -> None:
+def _refuse_unported(config: TrainConfig) -> None:
     _refuse_mixed_precision(config)
-    if mode == "sampler":
-        raise NotImplementedError(
-            "input='sampler': the on-device chunk sampler (train/device_sampler.py) is not "
-            "ported yet (ROADMAP Queue 1 item 3)")
-    if config.remat != "none":
-        raise NotImplementedError(
-            f"remat={config.remat!r}: activation rematerialisation is not ported yet "
-            "(ROADMAP Queue 1 item 3)")
     if config.n_devices not in (None, 1):
         raise NotImplementedError(
             f"n_devices={config.n_devices}: training on more than one device is not "
@@ -172,6 +181,50 @@ def _resident_indices(replay: device_replay.DeviceReplay, config: TrainConfig, d
         yield {"resident_idx": t.pin_memory() if dev.type == "cuda" else t}
 
 
+def _sampler_scenes(config: TrainConfig, train_scenes, dev) -> device_sampler.ResidentScenes:
+    """The train scenes resident on the device for ``input='sampler'``.  The
+    budget is checked from the scenes' array headers before any body is
+    loaded."""
+    lengths = [np.load(scene_path(config.data_root, "points", name), mmap_mode="r").shape[0]
+               for name in train_scenes]
+    device_sampler.check_budget(lengths, config.use_colors, config.use_normals,
+                                config.sampler_budget_mb)
+    return device_sampler.ResidentScenes(
+        [load_scene_mapped(config.data_root, name) for name in train_scenes], device=dev,
+        use_colors=config.use_colors, use_normals=config.use_normals,
+        chunk_size=config.chunk_size, margin=config.context_margin)
+
+
+def _scene_id_stream(config: TrainConfig, n_scenes: int, dev):
+    """The endless stream of ``{'scene_ids': (B,) int32}``: a permutation of
+    the train scenes a pass, cut into batches (one batch of the permutation
+    resized to B when there are fewer scenes than B), the JAX trainer's
+    stream of process 0 (it seeds ``seed + 31 * process_index``); pinned on
+    a card so the step copies it without a host sync."""
+    rng = np.random.RandomState(config.seed)
+    b = config.batch_size
+    n_full = n_scenes // b * b
+    while True:
+        order = rng.permutation(n_scenes)
+        for i in range(0, max(n_full, b), b):
+            t = torch.from_numpy(np.resize(order[i:i + b], b).astype(np.int32))
+            yield {"scene_ids": t.pin_memory() if dev.type == "cuda" else t}
+
+
+def _onfly_val_chunks(data_root: str, val_scenes, n_points: int, seed: int = 0,
+                      chunk_size: float = CHUNK_SIZE, margin: float = CONTEXT_MARGIN):
+    """Full-coverage validation chunks cut from the raw val scenes
+    (``grid_chunks_for_eval``, a ``RandomState(seed)`` a scene): the val
+    input of ``input='sampler'``, where no precompute directory exists."""
+    for name in val_scenes:
+        sc = load_scene_mapped(data_root, name)
+        out = grid_chunks_for_eval(sc["points"], sc["labels"], sc["colors"], sc["normals"],
+                                   n_points, rng=np.random.RandomState(seed),
+                                   chunk_size=chunk_size, margin=margin)
+        for i in range(len(out["points"])):
+            yield {k: out[k][i] for k in ("points", "labels", "colors", "normals", "weights")}
+
+
 def _host_batches(config: TrainConfig, mode: str, wire_spec, train_scenes, epochs: int):
     """The endless stream of host (numpy) training batches of ``mode``."""
     if mode == "packed":
@@ -206,7 +259,7 @@ def train(config: TrainConfig, max_steps: Optional[int] = None,
     val_accuracy."""
     dev = resolve(device)
     mode = resolve_input_mode(config)
-    _refuse_unported(config, mode)
+    _refuse_unported(config)
     train_scenes = read_split(config.split_dir, "train")
     if config.use_subset:
         train_scenes = train_scenes[: len(train_scenes) // 3]
@@ -221,9 +274,20 @@ def train(config: TrainConfig, max_steps: Optional[int] = None,
         # The packed record paths default to the q16 records.
         wire_spec = WireSpec(n=config.n_points, layout="q16", use_colors=config.use_colors,
                              use_normals=config.use_normals)
-    epochs_avail = _precomputed_epochs(config.precompute_dir, train_scenes)
     step_kwargs = dict(bn_schedule=bn, num_classes=config.num_classes, remat=config.remat)
-    if mode == "resident":
+    val_chunks = None
+    if mode == "sampler":
+        sampler_step = device_sampler.make_sampling_train_step(
+            _sampler_scenes(config, train_scenes, dev), config.n_points,
+            augment=config.resident_augment, **step_kwargs)
+        source = _scene_id_stream(config, n_train, dev)
+
+        def train_step(state, batch):
+            return sampler_step(state, batch["scene_ids"], config.seed)
+
+        val_chunks = _val_chunk_source(config, val_scenes)
+    elif mode == "resident":
+        epochs_avail = _precomputed_epochs(config.precompute_dir, train_scenes)
         replay = _resident_replay(
             config, _pack_reader(config, wire_spec, train_scenes, epochs_avail), wire_spec, dev)
         resident_step = device_replay.make_resident_train_step(
@@ -234,7 +298,8 @@ def train(config: TrainConfig, max_steps: Optional[int] = None,
             return resident_step(state, replay.device_corpus, batch["resident_idx"],
                                  config.seed)
     else:
-        source = _host_batches(config, mode, wire_spec, train_scenes, epochs_avail)
+        source = _host_batches(config, mode, wire_spec, train_scenes,
+                               _precomputed_epochs(config.precompute_dir, train_scenes))
 
         def train_step(state, batch):
             return steps.seg_train_step(state, batch, config.seed, wire_spec=wire_spec,
@@ -252,13 +317,32 @@ def train(config: TrainConfig, max_steps: Optional[int] = None,
             if ckpt is not None:
                 restore_checkpoint(ckpt, state)
         return _train_loop(config, state, batch, train_iter, train_step, wire_spec,
-                           val_scenes, n_train, max_steps, max_seconds)
+                           val_scenes, val_chunks, n_train, max_steps, max_seconds)
     finally:
         train_iter.close()
 
 
+def _val_chunk_source(config: TrainConfig, val_scenes):
+    """``() -> iterator`` of the on-the-fly val chunks; with
+    ``cache_val_chunks`` they are cut at the first validation and replayed
+    from memory after it (they are the same every time)."""
+    cache = []
+
+    def chunks():
+        if cache:
+            return iter(cache)
+        gen = _onfly_val_chunks(config.data_root, val_scenes, config.n_points,
+                                chunk_size=config.chunk_size, margin=config.context_margin)
+        if not config.cache_val_chunks:
+            return gen
+        cache.extend(gen)
+        return iter(cache)
+
+    return chunks
+
+
 def _train_loop(config, state, batch, train_iter, train_step, wire_spec, val_scenes,
-                n_train, max_steps, max_seconds) -> dict:
+                val_chunks, n_train, max_steps, max_seconds) -> dict:
     logger = MetricLogger(config.log_dir, "train")
     best = BestKeeper(config.ckpt_dir)
     train_miou = StreamingMeanIoU(config.num_classes)
@@ -305,7 +389,8 @@ def _train_loop(config, state, batch, train_iter, train_step, wire_spec, val_sce
             if config.save_every_epochs and epoch % config.save_every_epochs == 0:
                 save_checkpoint(config.ckpt_dir, state, step_idx + 1)
             if epoch % config.n_epochs_to_val == 0:
-                val = evaluate(config, state, val_scenes, wire_spec=wire_spec)
+                val = evaluate(config, state, val_scenes, wire_spec=wire_spec,
+                               chunk_iter=val_chunks() if val_chunks else None)
                 logger.log(step_idx + 1, {f"val_{k}": v for k, v in val.items()})
                 if best.maybe_save(state, step_idx + 1, val["miou"]):
                     summary["best_val_miou"] = val["miou"]

@@ -5,9 +5,8 @@ fields, defaults and JSON, so a ``config.json`` written by either package
 loads in the other.  The device is not a field: it is a keyword of
 ``train.trainer.train`` and ``make_eval_state`` and the ``--device`` flag of
 ``train.trainer.main``.  Fields of paths the port does not run yet
-(``input='sampler'``, ``compute_dtype='bfloat16'``, ``remat``,
-``n_devices`` > 1) are kept so such configs load; ``train`` raises
-``NotImplementedError`` for them.
+(``compute_dtype='bfloat16'``, ``n_devices`` > 1) are kept so such configs
+load; ``train`` raises ``NotImplementedError`` for them.
 """
 from __future__ import annotations
 
@@ -38,7 +37,8 @@ class TrainConfig:
     #                (data/scannet/packstore.py, data/wire.py),
     #   'resident' — the packed corpus resident on the device, a (B,) index a
     #                step (train/device_replay.py),
-    #   'sampler'  — raw scenes on the device, chunks cut there (not ported),
+    #   'sampler'  — raw scenes on the device, chunks cut there
+    #                (train/device_sampler.py),
     #   'auto'     — derived from wire_format and device_replay.
     input: str = "auto"
     # 'f32', 'compact' (u8 labels/mask/colors, f16 normals, widened on the
@@ -49,7 +49,7 @@ class TrainConfig:
     device_replay: bool = False
     device_replay_budget_mb: int = 4096
     # The sampler mode's budget for the resident raw scenes and its val-chunk
-    # cache (not ported).
+    # cache.
     sampler_budget_mb: int = 8192
     cache_val_chunks: bool = True
     # A fresh z-rotation per sample and step on the device (resident and
@@ -63,7 +63,8 @@ class TrainConfig:
     # Extra keyword arguments of the model (e.g. sa_npoints / sa_mlps
     # hierarchies, dropout_rate); a JSON dict.
     model_overrides: Optional[dict] = None
-    # Activation rematerialisation: only 'none' is ported.
+    # Activation rematerialisation: 'none', 'dots' (keep the matmul outputs)
+    # or 'full'.
     remat: str = "none"
     # training
     epochs: int = 500

@@ -444,8 +444,8 @@ def test_seg_train_step_matches_jax(scene, config, b, npoints, steps, grad_rel):
     kwargs = TINY if config == "tiny" else {}
     tstate = train_steps_match_jax(scene, "sem_seg_features", kwargs, b, npoints, steps,
                                    grad_rel)
-    with pytest.raises(NotImplementedError, match="remat"):
-        seg_train_step(tstate, _batch(scene, b, npoints, seed=30), remat="full")
+    with pytest.raises(ValueError, match="remat"):
+        seg_train_step(tstate, _batch(scene, b, npoints, seed=30), remat="bogus")
 
 
 def train_steps_match_jax(scene, name, kwargs, b, npoints, steps, grad_rel, features=True):

@@ -212,8 +212,6 @@ def test_resolve_input_mode_matches_jax(case):
 
 
 @pytest.mark.parametrize("over,message", [
-    (dict(input="sampler"), "sampler.*device_sampler.py.*ROADMAP Queue 1 item 3"),
-    (dict(remat="full"), "ROADMAP Queue 1 item 3"),
     (dict(n_devices=2), "ROADMAP Queue 1 item 7"),
     (dict(compute_dtype="bfloat16"), "ROADMAP Queue 1 item 4"),
 ])
