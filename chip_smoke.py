@@ -7,14 +7,16 @@ Run from the repository root on a machine with a CUDA card:
 
 Phases (each raises on failure; the script then exits non-zero):
 
-1. build        -- compile the seven CUDA kernels from ``csrc/`` with nvcc
+1. build        -- compile the host grid assignment (``native/``) with g++,
+                   then the seven CUDA kernels from ``csrc/`` with nvcc
                    (sm_90a), one nvcc per source, all started together.
 2. model        -- full-width ``sem_seg_features`` with seeded weights and BN
                    statistics: B2 x 8192 eval forward on the card and on the
                    CPU, TF32 off; indices equal at every level, logits within
                    rtol=atol=1e-3.
 3. serve        -- synthetic rooms of 150k points chunked to 8192-point
-                   chunks, predicted in batches of 16 and stitched; launch
+                   chunks (the compiled grid assignment, timed beside its
+                   numpy version), predicted in batches of 16 and stitched; launch
                    counters are zeroed just before and read just after: every
                    forward kernel launched, no backward kernel did.
    serve-resident -- the same rooms through ``ResidentSceneServer`` (q16, one
@@ -86,6 +88,23 @@ Phases (each raises on failure; the script then exits non-zero):
    attention-train -- phase 6 for ``sem_seg_attention`` on the flagship's
                    batches (10 timed steps): all seven kernels launched in its
                    own window, every loss finite.
+   The PointNet++ classification and part-segmentation families
+   (``FAMILY_N``: ModelNet40's B16 x 1024 xyz only, ShapeNet-part's B16 x
+   2048 with normals):
+   family-model -- ``cls_ssg``, ``cls_msg``, ``part_seg`` and
+                   ``part_seg_msg_one_hot`` with seeded weights, B16 eval
+                   forward on the card and on CPU copies: SA1-2 centres
+                   equal, logits within rtol=atol=1e-3; launches a forward.
+   family-train-parity -- one ``cls_train_step`` of ``cls_msg`` and one
+                   ``partseg_train_step`` of ``part_seg_msg_one_hot``, B2,
+                   held as in phase 5 (``hold_step``); all seven kernels
+                   launch in the part-seg step.
+   family-train -- 10 timed B16 steps of each of the four: median step,
+                   points/s, peak memory, launches a step.
+   family-recipe -- ``run_cls_convergence`` (cls_ssg, cls_msg with normals)
+                   and ``run_partseg_convergence`` (part_seg,
+                   part_seg_msg_one_hot) at the sizes of the JAX package's
+                   RESULTS_family_convergence.json, reported beside it.
 7. kernels      -- every forward kernel against its plain PyTorch version on
                    the card at the B16 shapes (SA1-4, FP1-4) and at a large N;
                    all outputs equal bit for bit.  FPS, ball query,
@@ -147,6 +166,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -208,7 +228,14 @@ from pointcloud_segmentation_attention_tpu_torch.train import (  # noqa: E402
 from pointcloud_segmentation_attention_tpu_torch.train import steps as train_steps  # noqa: E402
 from pointcloud_segmentation_attention_tpu_torch.train import device_replay  # noqa: E402
 from pointcloud_segmentation_attention_tpu_torch.train import device_sampler  # noqa: E402
-from pointcloud_segmentation_attention_tpu_torch.recipes import run_zero_precompute  # noqa: E402
+from pointcloud_segmentation_attention_tpu_torch.recipes import (  # noqa: E402
+    run_cls_convergence,
+    run_partseg_convergence,
+    run_zero_precompute,
+)
+from pointcloud_segmentation_attention_tpu_torch.data import modelnet  # noqa: E402
+from pointcloud_segmentation_attention_tpu_torch import native  # noqa: E402
+from pointcloud_segmentation_attention_tpu_torch.train import cls_steps  # noqa: E402
 from pointcloud_segmentation_attention_tpu_torch.train.bn_fold import (  # noqa: E402
     fold_batchnorm_for_inference,
 )
@@ -314,6 +341,10 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor, tol: dict) -> 
 
 
 def phase_build() -> None:
+    t0 = time.perf_counter()
+    native.build()
+    log(f"[build] host grid assignment built with g++ in {time.perf_counter() - t0:.1f} s "
+        f"-> {os.path.relpath(native.library_path(), ROOT)}")
     t0 = time.perf_counter()
     kernels.build(verbose=True)
     log(f"[build] {len(kernels.SOURCES)} kernels built in {time.perf_counter() - t0:.1f} s "
@@ -536,6 +567,16 @@ def _duplicated(rng: np.random.RandomState, b: int, n: int, distinct: int, dev):
                             .astype(np.float32)).to(dev)
 
 
+def family_level(name: str, n: int, m: int, b: int = 16):
+    """(cloud (B,n,3), its FPS centres (B,m,3)) on the card: unit-sphere
+    shapes of ``family_batch(name)``, thinned by FPS to ``n`` points where
+    ``n`` is below the model's input size (SA2's input)."""
+    xyz = torch.from_numpy(family_batch(name, b, seed=5)["points"][..., :3].copy()).cuda()
+    if n < xyz.shape[1]:
+        xyz = plain.gather_point(xyz, ops.farthest_point_sample(xyz, n))
+    return xyz, plain.gather_point(xyz, ops.farthest_point_sample(xyz, m))
+
+
 def check_ball_query_edges(dev, rng: np.random.RandomState) -> list:
     """Ball query bit-identical (idx and cnt) to its plain version at edge
     shapes that together run every variant of ``ball_query.plan``; returns
@@ -571,6 +612,13 @@ def check_ball_query_edges(dev, rng: np.random.RandomState) -> list:
         ("full in the first tile (dense, r 2)", dense, dense[:, ::8].contiguous(), 2.0, 32),
         ("full in the first tile, nsample 64", dense, dense[:, ::8].contiguous(), 2.0, 64),
         ("point on the sphere", sphere, sphere[:, 1:2].contiguous(), 0.5, 4),
+        # The families' levels on unit-sphere shapes, FPS centres.
+        ("cls MSG SA1 r .1 ns16", *family_level("cls_ssg", 1024, 512), 0.1, 16),
+        ("cls MSG SA1 r .4 ns128", *family_level("cls_ssg", 1024, 512), 0.4, 128),
+        ("cls SSG SA2 r .4 ns64", *family_level("cls_ssg", 512, 128), 0.4, 64),
+        ("cls MSG SA2 r .8 ns128", *family_level("cls_ssg", 512, 128), 0.8, 128),
+        ("part-seg MSG SA1 r .4 ns128", *family_level("part_seg", 2048, 512), 0.4, 128),
+        ("part-seg SSG SA1 r .2 ns64", *family_level("part_seg", 2048, 512), 0.2, 64),
         ("duplicates, N 8192 of 300", _duplicated(rng, 2, 8192, 300, dev), 512, 0.2, 32),
     ]
     labels, seen = [], set()
@@ -620,6 +668,9 @@ def check_three_nn_edges(dev, rng: np.random.RandomState) -> list:
         ("B1", cloud(1, 8192), cloud(1, 1024)),
         ("B17", cloud(17, 8192), cloud(17, 1024)),
         ("B16, M 8300 in the ring", cloud(16, 8192), cloud(16, 8300)),
+        ("part-seg FP1, M 1", cloud(16, 128), torch.zeros(16, 1, 3, device=dev)),
+        ("M 2, B16 N 128", cloud(16, 128), cloud(16, 2)),
+        ("part-seg FP3, N 2048 M 512", *family_level("part_seg", 2048, 512)),
     ]
     labels, seen, opt_in = [], set(), False
     for label, xyz1, xyz2 in cases:
@@ -692,7 +743,7 @@ def check_gather_edges(dev, rng: np.random.RandomState) -> list:
     ball-query padding) at SA1-4's channel counts, at runs of nsample x C
     floats that are not a multiple of 4, with C < 4, and nsample > 32."""
     cases = [(32, 9), (32, 67), (32, 131), (32, 259), (13, 7), (40, 5), (1, 1), (3, 2),
-             (33, 3), (64, 131)]
+             (33, 3), (64, 131), (16, 6), (128, 6), (128, 323), (64, 323)]
     for ns, c in cases:
         pts = torch.from_numpy(rng.randn(2, 1000, c).astype(np.float32)).to(dev)
         idx = torch.from_numpy(rng.randint(0, 1000, (2, 101, ns)).astype(np.int32)).to(dev)
@@ -775,12 +826,13 @@ def check_gather_bwd_edges(dev, rng: np.random.RandomState) -> list:
     return labels
 
 
-def check_interpolate_bwd(label: str, g, idx, w, p2) -> float:
+def check_interpolate_bwd(label: str, g, idx, w, p2, dw_tol: dict = BWD_TOL) -> float:
     """The interpolation backward on the card: dP equal to the plain version
     run on CPU copies (the order of its sums is the CPU's), dP and dw the
     same bits from call to call, dP without dw the same again, dw within
-    BWD_TOL; the CSR the backward builds equal to ``plain.interpolation_csr``.
-    Returns dw's largest error."""
+    ``dw_tol`` (``BWD_TOL`` unless a caller states another); the CSR the
+    backward builds equal to ``plain.interpolation_csr``.  Returns dw's
+    largest error."""
     dp, dw = interp_kernels.three_interpolate_backward(g, idx, w, p2)
     dp2, dw2 = interp_kernels.three_interpolate_backward(g, idx, w, p2)
     dp_only, none = interp_kernels.three_interpolate_backward(g, idx, w, p2, need_dw=False)
@@ -795,7 +847,7 @@ def check_interpolate_bwd(label: str, g, idx, w, p2) -> float:
     poffsets, pentries = plain.interpolation_csr(idx.cpu(), p2.shape[1])
     check_equal(f"interpolation CSR offsets {label}", offsets, poffsets)
     check_equal(f"interpolation CSR entries {label}", entries, pentries)
-    return check_close(f"three_interpolate_bwd dw {label}", dw, pdw, BWD_TOL)
+    return check_close(f"three_interpolate_bwd dw {label}", dw, pdw, dw_tol)
 
 
 def check_interpolate_edges(dev, rng: np.random.RandomState) -> list:
@@ -889,9 +941,10 @@ def phase_kernels_bwd(dev, geom: dict, reps: int) -> dict:
     def err(name, e):
         rep[name]["max_abs_err"] = max(rep[name]["max_abs_err"], e)
 
-    def gather_case(label, idx, n, c):
+    def gather_case(label, idx, n, c, lib_tol=BWD_TOL):
         """Bit for bit against the CPU and call to call; timed beside its
-        bound and ``index_add_``."""
+        bound and ``index_add_`` (held to the plain version within
+        ``lib_tol``: on the card it adds in no fixed order)."""
         b, m, k = idx.shape
         g = torch.randn(b, m, k, c, device=dev, generator=rng)
         check_gather_bwd(label, g, idx, n)
@@ -899,7 +952,7 @@ def phase_kernels_bwd(dev, geom: dict, reps: int) -> dict:
         fn = lambda: gather_kernels.group_point_backward(g, idx, n)  # noqa: E731
         lib = index_add_call(g, idx, n)
         check_close(f"group_gather_bwd library {label}", lib().reshape(b, n, c),
-                    plain.group_point_backward(g, idx, n), BWD_TOL)
+                    plain.group_point_backward(g, idx, n), lib_tol)
         r["levels"][label] = time_ms(fn, reps)
         r["device_fns"][label] = fn
         r.setdefault("level_bound", {})[label] = bound(*gather_bwd_work(g, n))
@@ -907,9 +960,9 @@ def phase_kernels_bwd(dev, geom: dict, reps: int) -> dict:
         r.setdefault("library_fns", {})[label] = lib
         return g
 
-    def interp_case(label, idx, w, p2, timed):
+    def interp_case(label, idx, w, p2, timed, dw_tol=BWD_TOL):
         g = torch.randn(idx.shape[0], idx.shape[1], p2.shape[-1], device=dev, generator=rng)
-        err("three_interpolate_bwd", check_interpolate_bwd(label, g, idx, w, p2))
+        err("three_interpolate_bwd", check_interpolate_bwd(label, g, idx, w, p2, dw_tol))
         if timed:
             r = rep["three_interpolate_bwd"]
             fn = lambda: interp_kernels.three_interpolate_backward(g, idx, w, p2)  # noqa: E731
@@ -938,6 +991,30 @@ def phase_kernels_bwd(dev, geom: dict, reps: int) -> dict:
         "backward: dP equal to the plain version on CPU copies and from call to call (also "
         f"without dw), dw within {BWD_TOL} and equal from call to call, the CSR equal to "
         "plain.interpolation_csr")
+
+    # The families' new shapes: the gather backward at K 128, C 323 (cls MSG
+    # SA2: 320 features + xyz), and the interpolation from M 1 (part-seg FP1,
+    # N 128, C 1024; and N 2048): one CSR key holds every entry of a cloud.
+    xyz, centres = family_level("cls_ssg", 512, 128)
+    # A row there sums up to ~4,000 g rows, in no fixed order in index_add_
+    # (2.1e-5 apart from the ordered sum on an H100).
+    gather_case("cls MSG SA2 K128 C323", ops.ball_query(xyz, centres, 0.8, 128)[0], 512, 323,
+                lib_tol=dict(rtol=1e-4, atol=1e-4))
+    for n_m1 in (128, 2048):
+        unknown, _ = family_level("part_seg", n_m1, 1)
+        dist, m1_idx = ops.three_nn(unknown, torch.zeros(16, 1, 3, device=dev))
+        m1_w = plain.interpolation_weights(dist)
+        m1_p = torch.randn(16, 1, 1024, device=dev, generator=rng)
+        label = f"M1 N{n_m1} C1024" + (" (part-seg FP1)" if n_m1 == 128 else "")
+        check_equal(f"three_interpolate {label}", ops.three_interpolate(m1_p, m1_idx, m1_w),
+                    plain.three_interpolate(m1_p, m1_idx, m1_w))
+        # dw is a dot product of C 1024 products of unit-scale normals, summed
+        # in another order than the plain version's: 1.05e-5 apart on an
+        # H100, so its tolerance doubles with C over BWD_TOL's 512.
+        interp_case(label, m1_idx, m1_w, m1_p, True, dw_tol=dict(rtol=1e-5, atol=2e-5))
+    log("[kernels-bwd] family shapes: gather backward at cls MSG SA2 (B16 N512 M128 K128 "
+        "C323) and the interpolation forward and backward from M 1 (B16, N 128 and 2048, "
+        "C1024: one CSR key a cloud) equal to the plain versions on CPU copies")
 
     # Large N: 33,024 rows scattered into, and interpolated from.
     big = geom["large"]
@@ -1116,15 +1193,41 @@ def phase_serve(model, dev, scene_points: int, n_scenes: int, npoints: int,
     agree = float((got == want).mean())
     if agree < 0.999:
         raise AssertionError(f"served chunk labels agree with the CPU path on only {agree:.4%}")
+    grid = grid_assign_times(scenes[1]["points"])
     res = dict(scenes=len(served), chunks=n_chunks, points=n_points, wall_s=wall,
                points_per_s=n_points / wall, chunks_per_s=n_chunks / wall,
-               peak_bytes=peak, launches=launches, cpu_agreement=agree)
+               peak_bytes=peak, launches=launches, cpu_agreement=agree, grid_assign=grid)
     log(f"[serve] {res['scenes']} scenes, {n_chunks} chunks of {npoints}, {n_points} points "
         f"served in {wall:.3f} s after one warm-up scene: {res['points_per_s']:.0f} points/s, "
         f"{res['chunks_per_s']:.1f} chunks/s; max_memory_allocated {peak / 2**20:.1f} MiB; "
         f"labels of 2 chunks agree with the CPU path on {agree:.4%}")
     log(f"[serve] launches in the serve window: {json.dumps(launches)}")
+    log(f"[serve] grid assignment of scene_chunks: the compiled one "
+        f"({os.path.relpath(native.library_path(), ROOT)}), {grid['compiled_ms']:.2f} ms a "
+        f"room of {len(scenes[1]['points'])} points against the numpy version's "
+        f"{grid['numpy_ms']:.2f} ms, equal pair for pair")
     return res
+
+
+def grid_assign_times(points: np.ndarray, reps: int = 5) -> dict:
+    """Median ms of the compiled host grid assignment (what ``scene_chunks``
+    runs) and of its numpy version on one room; both must give the same
+    pairs."""
+    times = {}
+    for label, fn in (("compiled_ms", native.grid_chunk_assign),
+                      ("numpy_ms", native.grid_chunk_assign_numpy)):
+        runs = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn(points)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        times[label] = float(np.median(runs))
+        times.setdefault("pairs", []).append(out)
+    a, b = times.pop("pairs")
+    for x, y in zip(a, b):
+        if not np.array_equal(x, y):
+            raise AssertionError("compiled and numpy grid assignments differ")
+    return times
 
 
 def phase_serve_resident(model, dev, scene_points: int, n_scenes: int, npoints: int,
@@ -1343,9 +1446,10 @@ def _noise_biases(model) -> set:
             or name.endswith("attention_bn")}
 
 
-def _one_step(model, batch: dict):
-    """(loss, gradients, BN statistics) of one ``seg_train_step``, on the CPU."""
-    _, m = seg_train_step(TrainState(model), batch)
+def _one_step(model, batch: dict, step=seg_train_step):
+    """(loss, gradients, BN statistics) of one ``step`` (``seg_train_step``
+    or a family's step), on the CPU."""
+    _, m = step(TrainState(model), batch)
     grads = {k: p.grad.detach().double().cpu() for k, p in model.named_parameters()}
     stats = {k: v.detach().cpu() for k, v in model.named_buffers()}
     return float(m["loss"]), grads, stats
@@ -1353,6 +1457,79 @@ def _one_step(model, batch: dict):
 
 def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def hold_step(tag: str, card, cpu, on_plain, f64, noise: set, noise_tol: float = 1e-5,
+              zeros: Optional[dict] = None) -> dict:
+    """Hold one training step on the card to ``phase_train_parity``'s limits.
+    ``card`` and ``cpu`` are (loss, gradients, BN statistics) of the step
+    from the same weights and batch, ``on_plain`` (loss, gradients) of the
+    card through the plain ops, ``f64`` (gradients, BN statistics) of a
+    float64 CPU run; ``noise`` names the tensors whose exact gradient is 0,
+    held below ``noise_tol`` x the largest gradient on both sides of the
+    card, as are the elements that ``zeros`` (name -> boolean mask, from
+    the float64 run) marks as exactly 0 within another tensor.  Returns the
+    measured distances and a one-line ``summary``."""
+    (loss_card, g_card, bn_card), (loss_cpu, g_cpu, bn_cpu) = card, cpu
+    (loss_plain, g_plain), (g64, bn64) = on_plain, f64
+    if not np.isfinite(loss_card):
+        raise AssertionError(f"{tag} loss not finite: {loss_card}")
+    np.testing.assert_allclose(loss_card, loss_cpu, rtol=1e-4, err_msg=f"{tag} loss")
+    np.testing.assert_allclose(loss_card, loss_plain, rtol=1e-6, err_msg=f"{tag} card plain loss")
+    bn_by_f64 = {}
+    for k in bn_cpu:
+        if torch.isclose(bn_card[k], bn_cpu[k], rtol=1e-4, atol=1e-5).all():
+            continue
+        d_card = _rel_l2(bn_card[k].double(), bn64[k])
+        d_cpu = _rel_l2(bn_cpu[k].double(), bn64[k])
+        if d_card > 2.0 * d_cpu + 1e-6:
+            check_close(f"{tag} BN {k}", bn_card[k], bn_cpu[k], dict(rtol=1e-4, atol=1e-5))
+            raise AssertionError(f"{tag} BN {k}: rel L2 from float64 {d_card:.3e} > 2 x the "
+                                 f"CPU's {d_cpu:.3e}")
+        bn_by_f64[k] = dict(card_rel_l2=d_card, cpu_rel_l2=d_cpu,
+                            max_abs_card_cpu=float((bn_card[k] - bn_cpu[k]).abs().max()))
+    if bn_by_f64:
+        log(f"[{tag}] BN statistics held to float64 (rel L2, card <= 2 x cpu + 1e-6): "
+            f"{json.dumps(bn_by_f64)}")
+
+    real = [k for k in g_cpu if k not in noise]
+    g_max = max(float(g_cpu[k].abs().max()) for k in real)
+    cpu_err = {k: _rel_l2(g_cpu[k], g64[k]) for k in real}
+    card_err = {k: _rel_l2(g_card[k], g64[k]) for k in real}
+    limit = 2.0 * max(cpu_err.values()) + 1e-6
+    bad = {k: v for k, v in card_err.items() if v > limit}
+    if bad:
+        raise AssertionError(f"{tag}: card gradients farther from float64 than {limit:.3e}: {bad}")
+    kernel_err = 0.0
+    for k, g in g_card.items():
+        if k in noise:
+            if max(float(g.abs().max()), float(g_plain[k].abs().max())) >= noise_tol * g_max:
+                raise AssertionError(f"{tag}: gradient of {k} (exactly 0) is not noise-sized")
+            continue
+        scale = float(g_plain[k].abs().max())
+        gp = g_plain[k]
+        if zeros is not None and bool(zeros[k].any()):
+            z = zeros[k]
+            if max(float(g[z].abs().max()), float(gp[z].abs().max())) >= noise_tol * g_max:
+                raise AssertionError(f"{tag}: gradient of {k} where it is exactly 0 is not "
+                                     f"noise-sized")
+            g, gp = g[~z], gp[~z]
+        check_close(f"{tag} card kernels vs card plain grad {k}", g, gp,
+                    dict(rtol=1e-3, atol=1e-5 * scale))
+        kernel_err = max(kernel_err, float((g - gp).abs().max()) / max(scale, 1e-30))
+    res = dict(loss_card=loss_card, loss_cpu=loss_cpu, loss_card_plain=loss_plain,
+               grad_rel_l2_card_vs_f64_max=max(card_err.values()),
+               grad_rel_l2_cpu_vs_f64_max=max(cpu_err.values()),
+               grad_rel_l2_card_vs_cpu_max=max(_rel_l2(g_card[k], g_cpu[k]) for k in real),
+               grad_max_err_kernels_vs_plain_on_card=kernel_err, bn_held_to_f64=bn_by_f64)
+    res["summary"] = (
+        f"loss card {loss_card:.7f} cpu {loss_cpu:.7f} card-plain {loss_plain:.7f}; "
+        f"BN statistics within rtol 1e-4 ({len(bn_by_f64)} held to float64 instead); "
+        f"gradients rel-L2 from float64: card max {res['grad_rel_l2_card_vs_f64_max']:.3e}, "
+        f"cpu max {res['grad_rel_l2_cpu_vs_f64_max']:.3e} (card vs cpu max "
+        f"{res['grad_rel_l2_card_vs_cpu_max']:.3e}); card kernels vs card plain max "
+        f"|dg|/max|g| {kernel_err:.3e}")
+    return res
 
 
 def phase_train_parity(dev, scenes, n: int, name: str = "sem_seg_features",
@@ -1419,61 +1596,15 @@ def phase_train_parity(dev, scenes, n: int, name: str = "sem_seg_features",
         lvl = 3 - i
         _, di = ops.three_nn(xyzs[lvl].to(dev), xyzs[lvl + 1].to(dev))
         check_equal(f"{tag} FP{i + 1} three_nn", di, plain.three_nn(xyzs[lvl], xyzs[lvl + 1])[1])
-    if not np.isfinite(loss_card):
-        raise AssertionError(f"{tag} loss not finite: {loss_card}")
-    np.testing.assert_allclose(loss_card, loss_cpu, rtol=1e-4, err_msg=f"{tag} loss")
-    np.testing.assert_allclose(loss_card, loss_plain, rtol=1e-6, err_msg=f"{tag} card plain loss")
-    bn_by_f64 = {}
-    for k in bn_cpu:
-        if torch.isclose(bn_card[k], bn_cpu[k], rtol=1e-4, atol=1e-5).all():
-            continue
-        d_card = _rel_l2(bn_card[k].double(), bn64[k])
-        d_cpu = _rel_l2(bn_cpu[k].double(), bn64[k])
-        if d_card > 2.0 * d_cpu + 1e-6:
-            check_close(f"{tag} BN {k}", bn_card[k], bn_cpu[k], dict(rtol=1e-4, atol=1e-5))
-            raise AssertionError(f"{tag} BN {k}: rel L2 from float64 {d_card:.3e} > 2 x the "
-                                 f"CPU's {d_cpu:.3e}")
-        bn_by_f64[k] = dict(card_rel_l2=d_card, cpu_rel_l2=d_cpu,
-                            max_abs_card_cpu=float((bn_card[k] - bn_cpu[k]).abs().max()))
-    if bn_by_f64:
-        log(f"[{tag}] BN statistics held to float64 (rel L2, card <= 2 x cpu + 1e-6): "
-            f"{json.dumps(bn_by_f64)}")
-
-    noise = _noise_biases(base)
-    real = [k for k in g_cpu if k not in noise]
-    g_max = max(float(g_cpu[k].abs().max()) for k in real)
-    cpu_err = {k: _rel_l2(g_cpu[k], g64[k]) for k in real}
-    card_err = {k: _rel_l2(g_card[k], g64[k]) for k in real}
-    limit = 2.0 * max(cpu_err.values()) + 1e-6
-    bad = {k: v for k, v in card_err.items() if v > limit}
-    if bad:
-        raise AssertionError(f"{tag}: card gradients farther from float64 than {limit:.3e}: {bad}")
-    kernel_err = 0.0
-    for k, g in g_card.items():
-        if k in noise:
-            if max(float(g.abs().max()), float(g_plain[k].abs().max())) >= 1e-5 * g_max:
-                raise AssertionError(f"{tag}: gradient of {k} (exactly 0) is not noise-sized")
-            continue
-        scale = float(g_plain[k].abs().max())
-        check_close(f"{tag} card kernels vs card plain grad {k}", g, g_plain[k],
-                    dict(rtol=1e-3, atol=1e-5 * scale))
-        kernel_err = max(kernel_err, float((g - g_plain[k]).abs().max()) / max(scale, 1e-30))
-    res = dict(loss_card=loss_card, loss_cpu=loss_cpu, loss_card_plain=loss_plain,
-               grad_rel_l2_card_vs_f64_max=max(card_err.values()),
-               grad_rel_l2_cpu_vs_f64_max=max(cpu_err.values()),
-               grad_rel_l2_card_vs_cpu_max=max(_rel_l2(g_card[k], g_cpu[k]) for k in real),
-               grad_max_err_kernels_vs_plain_on_card=kernel_err, bn_held_to_f64=bn_by_f64,
-               first_step_card_s=t_card, step_cpu_s=t_cpu, f64_cpu_s=t_64)
+    held = hold_step(tag, (loss_card, g_card, bn_card), (loss_cpu, g_cpu, bn_cpu),
+                     (loss_plain, g_plain), (g64, bn64), _noise_biases(base))
+    res = dict(held, first_step_card_s=t_card, step_cpu_s=t_cpu, f64_cpu_s=t_64)
     log(f"[{tag}] {name} full width B2 x {n}, "
         f"{'colors and normals' if 'features' in batch else 'xyz only'}, TF32 and dropout off: "
         f"indices equal at "
         f"SA1-4/FP1-4; loss card {loss_card:.7f} cpu {loss_cpu:.7f} card-plain {loss_plain:.7f}; "
-        f"BN statistics within rtol 1e-4 ({len(bn_by_f64)} held to float64 instead); "
-        f"gradients rel-L2 from float64: card max "
-        f"{res['grad_rel_l2_card_vs_f64_max']:.3e}, cpu max {res['grad_rel_l2_cpu_vs_f64_max']:.3e}"
-        f" (card vs cpu max {res['grad_rel_l2_card_vs_cpu_max']:.3e}); card kernels vs card "
-        f"plain max |dg|/max|g| {kernel_err:.3e}; first step card {t_card:.2f} s, cpu "
-        f"{t_cpu:.2f} s, f64 {t_64:.2f} s")
+        f"{held['summary']}; first step card {t_card:.2f} s, cpu {t_cpu:.2f} s, "
+        f"f64 {t_64:.2f} s")
     return res
 
 
@@ -2081,6 +2212,246 @@ def phase_trainer(dev, n_train: int = 32, n_val: int = 2, scene_points: int = 15
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---- the PointNet++ classification and part-segmentation families ----------------
+
+# Registry name -> points a cloud: ModelNet40 (40 classes, xyz only) and
+# ShapeNet-part (50 parts of 16 categories, xyz + normals), at full width.
+FAMILY_N = {"cls_ssg": 1024, "cls_msg": 1024, "part_seg": 2048, "part_seg_msg_one_hot": 2048}
+# The JAX package's RESULTS_family_convergence.json: (metric, value, epochs,
+# run_*_convergence arguments); cls_msg ran with normals (its extended arm).
+FAMILY_RECIPES = {
+    "cls_ssg": ("best_accuracy", 0.75, 60, {}),
+    "cls_msg": ("best_accuracy", 1.0, 40, {"normal_channel": True}),
+    "part_seg": ("best_class_avg_iou", 0.8050232456467462, 40, {}),
+    "part_seg_msg_one_hot": ("best_class_avg_iou", 0.8890057979367574, 40, {}),
+}
+
+
+def family_batch(name: str, b: int, seed: int) -> dict:
+    """A batch as the family's trainer feeds it: unit-sphere-normalised
+    synthetic ModelNet shapes (``data/modelnet.py``), xyz only with a
+    class label for the classifiers, xyz + normals with per-point part
+    labels (and a category for the one-hot model) for the part segmenters."""
+    rng = np.random.RandomState(seed)
+    n = FAMILY_N[name]
+    clouds = np.stack([modelnet._synthetic_shape(int(rng.randint(40)), seed * 100 + i, n)
+                       for i in range(b)])
+    clouds[..., :3] = np.stack([modelnet.pc_normalize(c[:, :3]) for c in clouds])
+    if name.startswith("cls"):
+        return {"points": np.ascontiguousarray(clouds[..., :3]),
+                "labels": rng.randint(0, 40, b).astype(np.int32)}
+    batch = {"points": clouds.astype(np.float32),
+             "labels": rng.randint(0, 50, (b, n)).astype(np.int32)}
+    if name == "part_seg_msg_one_hot":
+        batch["cls"] = rng.randint(0, 16, b).astype(np.int32)
+    return batch
+
+
+def _family_step(name: str):
+    return cls_steps.cls_train_step if name.startswith("cls") else cls_steps.partseg_train_step
+
+
+def _family_args(name: str, batch: dict, dev, dtype=torch.float32) -> tuple:
+    """The model's positional inputs for ``batch`` on ``dev``."""
+    pts = torch.from_numpy(batch["points"]).to(dev, dtype)
+    if name.startswith("cls"):
+        return (pts,)
+    if "cls" in batch:
+        return pts, torch.from_numpy(batch["cls"]).to(dev)
+    return (pts,)
+
+
+def _family_levels(model):
+    """Hooks capturing the centres of SA1 and SA2 (FPS)."""
+    levels, hooks = {}, []
+    for i in (1, 2):
+        def hook(mod, args, out, i=i):
+            levels[i] = out[0].detach().cpu()
+        hooks.append(getattr(model, f"sa{i}").register_forward_hook(hook))
+    return levels, hooks
+
+
+def phase_family_model(dev, batch: int) -> dict:
+    """The four family models with seeded weights and BN statistics, B16 at
+    full width (cls 1024 xyz only, part-seg 2048 with normals), eval forward
+    on the card and on CPU copies, TF32 off: SA1 and SA2 centres equal,
+    logits within LOGIT_TOL.  Launches of each kernel in one forward."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for name in FAMILY_N:
+        cpu_model = models.seeded_model(name, seed=0, device="cpu").eval()
+        dev_model = copy.deepcopy(cpu_model).to(dev)
+        data = family_batch(name, batch, seed=1)
+        dev_levels, h1 = _family_levels(dev_model)
+        cpu_levels, h2 = _family_levels(cpu_model)
+        kernels.reset_launches()
+        with torch.no_grad():
+            got = dev_model(*_family_args(name, data, dev)).cpu()
+        launches = kernels.launch_counts()
+        with torch.no_grad():
+            want = cpu_model(*_family_args(name, data, "cpu"))
+        for h in h1 + h2:
+            h.remove()
+        for i in (1, 2):
+            check_equal(f"family-model {name} SA{i} centres", dev_levels[i], cpu_levels[i])
+        shape = (batch, 40) if name.startswith("cls") else (batch, FAMILY_N[name], 50)
+        if tuple(got.shape) != shape or not torch.isfinite(got).all():
+            raise AssertionError(f"family-model {name} logits bad: shape {tuple(got.shape)}")
+        e = check_close(f"family-model {name} logits", got, want, LOGIT_TOL)
+        want_kernels = FORWARD_KERNELS if name.startswith("part") else (
+            "fps", "ball_query", "group_gather")
+        missing = [k for k in want_kernels if launches[k] == 0]
+        if missing or any(launches[k] for k in BACKWARD_KERNELS):
+            raise AssertionError(f"family-model {name} forward launches {launches}")
+        out[name] = dict(max_abs_err=e, launches=launches)
+        log(f"[family-model] {name} B{batch} x {FAMILY_N[name]}: SA1-2 centres equal; logits "
+            f"max |card - cpu| = {e:.3e} (tol {LOGIT_TOL}); launches a forward "
+            f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    return out
+
+
+def phase_family_train_parity(dev, batch: int = 2) -> dict:
+    """One ``cls_train_step`` of ``cls_msg`` (B2 x 1024, xyz only) and one
+    ``partseg_train_step`` of ``part_seg_msg_one_hot`` (B2 x 2048, normals
+    and categories), dropout and TF32 off, from the same seeded weights and
+    batch: on the card, on the card through the plain ops, on the CPU and
+    in float64 on the CPU, held by ``hold_step`` to ``phase_train_parity``'s
+    limits, SA1-2 centres equal.  The exactly-zero gradients are the biases
+    feeding a train-mode BN and every element whose float64 gradient is
+    below 1e-9 of the largest (the last BN bias of the group-all SA and of
+    the MSG branches, on the channels whose max-pooled values are positive
+    everywhere: a shift uniform over every point of every cloud, which the
+    next train-mode BN removes); their float32 noise is held below 1e-4 of
+    the largest gradient (a sum over B x npoint x nsample terms; the CPU
+    tests measured up to 1.5e-5).  All seven kernels must launch in the
+    part-seg step on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {}
+    for name in ("cls_msg", "part_seg_msg_one_hot"):
+        tag = f"family-train-parity {name}"
+        step = _family_step(name)
+        base = models.seeded_model(name, seed=0, device="cpu", dropout_rate=0.0)
+        data = family_batch(name, batch, seed=2)
+        card, on_plain, ref64 = (copy.deepcopy(base).to(dev), copy.deepcopy(base).to(dev),
+                                 copy.deepcopy(base).double())
+        card_levels, h1 = _family_levels(card)
+        cpu_levels, h2 = _family_levels(base)
+        kernels.reset_launches()
+        on_card = _one_step(card, data, step)
+        launches = kernels.launch_counts()
+        on_cpu = _one_step(base, data, step)
+        for h in h1 + h2:
+            h.remove()
+        for i in (1, 2):
+            check_equal(f"{tag} SA{i} centres", card_levels[i], cpu_levels[i])
+        with plain_ops():
+            loss_plain, g_plain, _ = _one_step(on_plain, data, step)
+        ref64.train()
+        logits = ref64(*_family_args(name, data, "cpu", torch.float64),
+                       bn_momentum=schedules.upstream_bn_momentum(0))
+        losses.softmax_cross_entropy(logits, torch.from_numpy(data["labels"])).mean().backward()
+        g64 = {k: p.grad.detach() for k, p in ref64.named_parameters()}
+        bn64 = {k: v.detach() for k, v in ref64.named_buffers()}
+        g64_max = max(float(g.abs().max()) for g in g64.values())
+        zeros = {k: g.abs() < 1e-9 * g64_max for k, g in g64.items()}
+        noise = _noise_biases(base) | {k for k, z in zeros.items() if bool(z.all())}
+        held = hold_step(tag, on_card, on_cpu, (loss_plain, g_plain), (g64, bn64), noise,
+                         noise_tol=1e-4, zeros=zeros)
+        if name.startswith("part"):
+            missing = [k for k in KERNEL_INFO if launches[k] == 0]
+            if missing:
+                raise AssertionError(f"{tag}: the step never launched {missing}")
+        partial = {k: int(z.sum()) for k, z in zeros.items() if k not in noise and bool(z.any())}
+        res[name] = dict(held, launches=launches, exact_zero=sorted(noise - _noise_biases(base)),
+                         exact_zero_elements=partial)
+        log(f"[{tag}] B{batch} x {FAMILY_N[name]}, dropout and TF32 off: SA1-2 centres equal; "
+            f"{held['summary']}; exactly-zero gradients beyond the BN-fed biases: "
+            f"{res[name]['exact_zero']}, and elements of {json.dumps(partial)}; launches "
+            f"{json.dumps(launches)}")
+    return res
+
+
+def phase_family_train(dev, batch: int, steps: int, warmup: int) -> dict:
+    """``steps`` timed B16 training steps of each family model at full width,
+    after ``warmup``, on fresh host-made batches: median step (CUDA events),
+    points/s, peak memory, each kernel's launches a step; every loss
+    finite."""
+    out = {}
+    for name in FAMILY_N:
+        model = models.seeded_model(name, seed=0, device=dev)
+        state = TrainState(model, schedules.upstream_learning_rate)
+        step = _family_step(name)
+        data = [family_batch(name, batch, seed=10 + i) for i in range(warmup + steps)]
+        for d in data[:warmup]:
+            step(state, d)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        events, step_losses = [], []
+        for d in data[warmup:]:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            _, m = step(state, d)
+            end.record()
+            events.append((start, end))
+            step_losses.append(m["loss"])
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        step_losses = [float(v) for v in step_losses]
+        if not all(np.isfinite(step_losses)):
+            raise AssertionError(f"family-train {name}: non-finite loss {step_losses}")
+        want = KERNEL_INFO if name.startswith("part") else (
+            "fps", "ball_query", "group_gather", "group_gather_bwd")
+        missing = [k for k in want if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"family-train {name} never launched {missing}")
+        step_ms = [s.elapsed_time(e) for s, e in events]
+        med = float(np.median(step_ms))
+        n = FAMILY_N[name]
+        out[name] = dict(batch=batch, npoints=n, steps=steps, step_ms_median=med,
+                         step_ms=step_ms, points_per_s=batch * n / (med / 1e3),
+                         peak_bytes=peak, launches_per_step={k: v / steps
+                                                             for k, v in launches.items()},
+                         losses=step_losses)
+        log(f"[family-train] {name} B{batch} x {n}: median step {med:.3f} ms "
+            f"({out[name]['points_per_s']:.0f} points/s) over {steps} steps after {warmup}; "
+            f"max_memory_allocated {peak / 2**20:.1f} MiB; losses {step_losses[0]:.3f} .. "
+            f"{step_losses[-1]:.3f}; launches a step "
+            f"{json.dumps({k: v for k, v in out[name]['launches_per_step'].items() if v})}")
+        del model, state
+    return out
+
+
+def phase_family_recipe(dev) -> dict:
+    """``run_cls_convergence`` (cls_ssg, cls_msg with normals) and
+    ``run_partseg_convergence`` (part_seg, part_seg_msg_one_hot) on the card
+    at the sizes of the JAX package's ``RESULTS_family_convergence.json``
+    (their defaults; 60 epochs for cls_ssg, 40 for the others): the best
+    accuracy / class-average IoU beside JAX's.  The random streams differ,
+    so they are reported, not held; the step count must be JAX's."""
+    jax_steps = {"cls_ssg": 300, "cls_msg": 200, "part_seg": 160, "part_seg_msg_one_hot": 160}
+    work = tempfile.mkdtemp(prefix=".recipe_smoke_", dir=ROOT)
+    out = {}
+    try:
+        for name, (metric, jax_value, epochs, kw) in FAMILY_RECIPES.items():
+            run = run_cls_convergence if name.startswith("cls") else run_partseg_convergence
+            t0 = time.perf_counter()
+            summary = run(work, name, epochs=epochs, device=dev, **kw)
+            wall = time.perf_counter() - t0
+            if summary["steps"] != jax_steps[name] or not np.isfinite(summary[metric]):
+                raise AssertionError(f"family-recipe {name}: {summary}")
+            out[name] = dict(summary, wall_s=wall, jax=jax_value)
+            log(f"[family-recipe] {name}: {metric} {summary[metric]:.4f} (JAX "
+                f"RESULTS_family_convergence.json: {jax_value:.4f}) after {summary['steps']} "
+                f"steps, {epochs} epochs, in {wall:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script drives the GPU port",
@@ -2133,6 +2504,12 @@ def main() -> int:
     attn_train = phase("attention-train", phase_train, dev, batches, steps=10, warmup=3,
                        name="sem_seg_attention", tag="attention-train")
     del rooms, batches
+
+    # The PointNet++ classification and part-segmentation families at full width.
+    fam_model = phase("family-model", phase_family_model, dev, batch=16)
+    fam_parity = phase("family-train-parity", phase_family_train_parity, dev)
+    fam_train = phase("family-train", phase_family_train, dev, batch=16, steps=10, warmup=3)
+    fam_recipe = phase("family-recipe", phase_family_recipe, dev)
     rep, geom = phase("kernels", phase_kernels, dev, batch=16, n=8192, reps=20)
     rep.update(phase("kernels-bwd", phase_kernels_bwd, dev, geom, reps=20))
     del geom
@@ -2140,6 +2517,12 @@ def main() -> int:
     sampler["fast"]["device_ms"] = device_ms(sampler.pop("call"))
     log(f"[sampler] sample_chunk_batch fast, B16 x 8192: {sampler['fast']['device_ms']:.4f} ms "
         f"device-only (profiler), bound {sampler['bound_ms']:.4f} ms")
+    r = rep["three_interpolate_bwd"]
+    for label in (k for k in r["level_device"] if k.startswith("M1")):
+        log(f"[family] interpolation backward {label}: {r['level_device'][label]:.4f} ms "
+            f"device with dw, {r['dp_level_device'][label]:.4f} without (the train step's); "
+            f"bound {r['level_bound'][label][0]:.4f} / {r['dp_level_bound'][label][0]:.4f} ms "
+            f"by {r['level_bound'][label][1]}")
     fwd_device_ms = phase_forward_device(model, dev, batch=16, n=8192)
     folded_device_ms = phase_forward_device(folded, dev, batch=16, n=8192,
                                             what="eval forward, BN folded")
@@ -2161,6 +2544,8 @@ def main() -> int:
                f"{r['library_ms']:.4f} ms, device {r['library_device_ms']:.4f}")
         trainer_launches = " ".join(f"{tag}={run['launches'][name]}"
                                     for tag, run in trained["runs"].items())
+        trainer_launches += "; family train step: " + " ".join(
+            f"{m}={v['launches_per_step'][name]:g}" for m, v in fam_train.items())
         log(f"[report] {name:21s} launches={launches:4d} (serve-resident window: "
             f"{resident['launches'][name]}; trainer window: {trainer_launches}) "
             f"{r['shape']}: "
@@ -2176,6 +2561,9 @@ def main() -> int:
             "attention_train_launches": attn_train["launches"][name],
             "trainer_launches": {tag: run["launches"][name]
                                  for tag, run in trained["runs"].items()},
+            "family_forward_launches": {m: v["launches"][name] for m, v in fam_model.items()},
+            "family_train_launches_per_step": {m: v["launches_per_step"][name]
+                                               for m, v in fam_train.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "library_device_ms": r["library_device_ms"],
@@ -2214,7 +2602,10 @@ def main() -> int:
                                  "forward_b16_device_ms": attn_fwd_device_ms,
                                  "train_parity": attn_parity, "train": attn_train},
                    "trainer": trained, "sampler": sampler, "remat": remat,
-                   "recipe_zero_precompute": recipe, "phase_seconds": phase_s,
+                   "recipe_zero_precompute": recipe,
+                   "family": {"model": fam_model, "train_parity": fam_parity,
+                              "train": fam_train, "recipe": fam_recipe},
+                   "phase_seconds": phase_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))

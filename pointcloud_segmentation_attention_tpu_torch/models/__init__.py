@@ -1,13 +1,23 @@
-"""Model registry of the port: the names ported so far (the JAX package's
-``models/__init__.py`` names of the ScanNet segmentation family)."""
+"""Model registry of the port: the names ported so far of the JAX package's
+``models/__init__.py``: the ScanNet segmentation family, the PointNet++
+classifiers (``cls_ssg``, ``cls_msg``) and part segmenters (``part_seg``,
+``part_seg_msg_one_hot``).  The full attention nets and the PointNet v1
+family raise ``KeyError`` naming their ROADMAP item."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch import nn
 
 from pointcloud_segmentation_attention_tpu_torch.device import resolve
+from pointcloud_segmentation_attention_tpu_torch.models.cls import ClsMSG, ClsSSG
+from pointcloud_segmentation_attention_tpu_torch.models.part_seg import (
+    PartSegMSGOneHot,
+    PartSegSSG,
+)
 from pointcloud_segmentation_attention_tpu_torch.models.sem_seg import SemSegNet
+from pointcloud_segmentation_attention_tpu_torch.nn.layers import reset_parameters
 
 # Registry name -> SemSegNet arguments: the per-point input feature width
 # (colors + normals = 6; the attention variants are fed xyz only, as the
@@ -19,6 +29,18 @@ _REGISTRY = {
     "sem_seg_attention_single_layer": dict(in_features=0),  # pooling from layer_idx
     "sem_seg_attention_and_pooling": dict(in_features=0, sa_pooling=("attention_and_pool",) * 4),
 }
+# The PointNet++ classification and part-segmentation families: registry
+# name -> class (ModelNet40: 40 classes; ShapeNet-part: 50 parts).
+_FAMILIES = {
+    "cls_ssg": ClsSSG,
+    "cls_msg": ClsMSG,
+    "part_seg": PartSegSSG,
+    "part_seg_msg_one_hot": PartSegMSGOneHot,
+}
+# Registry names of the JAX package that are not ported yet.
+_NOT_PORTED = ("attention_net", "attention_net_mlp", "pooling_attention_net",
+               "pointnet1_cls_basic", "pointnet1_cls", "pointnet1_seg",
+               "pointnet1_part_seg", "pointnet1_sem_seg")
 
 
 def _single_layer_pooling(layer_idx: int):
@@ -29,25 +51,33 @@ def _single_layer_pooling(layer_idx: int):
 
 
 def get_model(name: str, *, device="cuda", generator: Optional[torch.Generator] = None,
-              **kwargs) -> SemSegNet:
+              **kwargs) -> nn.Module:
     """Build a registry model with weights drawn from ``generator`` and move
-    it to ``device``.  ``kwargs`` go to ``SemSegNet`` and override the
-    name's defaults; ``sem_seg_attention_single_layer`` also takes
-    ``layer_idx``.  Names of later slices raise ``KeyError``."""
-    if name not in _REGISTRY:
-        raise KeyError(f"unknown or not yet ported model '{name}'; "
-                       f"available: {sorted(_REGISTRY)}")
-    if name == "sem_seg_attention_single_layer":
-        if "layer_idx" not in kwargs:
-            raise TypeError(f"{name} needs layer_idx (the SA level with attention, 0-3)")
-        kwargs["sa_pooling"] = _single_layer_pooling(kwargs.pop("layer_idx"))
-    model = SemSegNet(**{**_REGISTRY[name], **kwargs})
-    model.reset_parameters(generator)
+    it to ``device``.  ``kwargs`` go to the model's class (``SemSegNet``
+    for the sem_seg names, overriding the name's defaults; ``ClsSSG`` and
+    ``ClsMSG`` take ``num_classes``, ``in_features`` and ``dropout_rate``;
+    the part segmenters ``num_classes`` and ``dropout_rate``);
+    ``sem_seg_attention_single_layer`` also takes ``layer_idx``.  Names
+    not ported yet raise ``KeyError``."""
+    if name in _NOT_PORTED:
+        raise KeyError(f"model '{name}' is not ported yet (ROADMAP Queue 1 item 6: the "
+                       f"full attention nets and the PointNet v1 family)")
+    if name not in _REGISTRY and name not in _FAMILIES:
+        raise KeyError(f"unknown model '{name}'; available: {available_models()}")
+    if name in _FAMILIES:
+        model = _FAMILIES[name](**kwargs)
+    else:
+        if name == "sem_seg_attention_single_layer":
+            if "layer_idx" not in kwargs:
+                raise TypeError(f"{name} needs layer_idx (the SA level with attention, 0-3)")
+            kwargs["sa_pooling"] = _single_layer_pooling(kwargs.pop("layer_idx"))
+        model = SemSegNet(**{**_REGISTRY[name], **kwargs})
+    reset_parameters(model, generator)
     return model.to(resolve(device))
 
 
 def seeded_model(name: str = "sem_seg_features", seed: int = 0, device="cuda",
-                 **kwargs) -> SemSegNet:
+                 **kwargs) -> nn.Module:
     """A registry model whose weights and BatchNorm statistics and affines
     are all drawn from ``seed`` (BN is then not the identity in eval mode):
     the stand-in for trained weights in smoke runs and benchmarks."""
@@ -67,7 +97,8 @@ def seeded_model(name: str = "sem_seg_features", seed: int = 0, device="cuda",
 
 
 def available_models():
-    return sorted(_REGISTRY)
+    return sorted({*_REGISTRY, *_FAMILIES})
 
 
-__all__ = ["SemSegNet", "available_models", "get_model", "seeded_model"]
+__all__ = ["ClsMSG", "ClsSSG", "PartSegMSGOneHot", "PartSegSSG", "SemSegNet",
+           "available_models", "get_model", "seeded_model"]

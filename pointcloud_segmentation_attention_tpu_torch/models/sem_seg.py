@@ -17,13 +17,12 @@ import torch
 from torch import nn
 
 from pointcloud_segmentation_attention_tpu_torch.nn import (
-    Dense,
     Dropout,
     FeaturePropagation,
     PointConv,
-    ScheduledBatchNorm,
     SetAbstraction,
 )
+from pointcloud_segmentation_attention_tpu_torch.nn.layers import reset_parameters
 
 SA_NPOINTS = (1024, 256, 64, 16)
 SA_RADII = (0.1, 0.2, 0.4, 0.8)
@@ -68,15 +67,7 @@ class SemSegNet(nn.Module):
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """Re-draw every kernel from ``generator``; zero biases, unit BN."""
-        for mod in self.modules():
-            if isinstance(mod, (PointConv, Dense)):
-                mod.reset_parameters(generator)
-            elif isinstance(mod, ScheduledBatchNorm):
-                with torch.no_grad():
-                    mod.scale.fill_(1.0)
-                    mod.bias.zero_()
-                    mod.mean.zero_()
-                    mod.var.fill_(1.0)
+        reset_parameters(self, generator)
 
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor] = None,
                 bn_momentum: float = 0.9,

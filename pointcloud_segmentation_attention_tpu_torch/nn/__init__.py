@@ -16,11 +16,14 @@ from pointcloud_segmentation_attention_tpu_torch.nn.modules import (
     POOLINGS,
     FeaturePropagation,
     SetAbstraction,
+    SetAbstractionMSG,
     sample_and_group,
+    sample_and_group_all,
 )
 
 __all__ = [
     "AttentionPool", "Dense", "Dropout", "FeaturePropagation", "FeedForward",
     "InnerAttention", "InnerAttentionBlock", "POOLINGS", "PointConv",
-    "ScheduledBatchNorm", "SetAbstraction", "SharedMLP", "sample_and_group",
+    "ScheduledBatchNorm", "SetAbstraction", "SetAbstractionMSG", "SharedMLP",
+    "sample_and_group", "sample_and_group_all",
 ]

@@ -169,3 +169,18 @@ class Dropout(nn.Module):
         keep = 1.0 - self.rate
         u = torch.rand(x.shape, generator=generator, device=x.device)
         return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+
+def reset_parameters(model: nn.Module, generator: Optional[torch.Generator] = None) -> None:
+    """Re-draw every ``PointConv`` and ``Dense`` kernel of ``model`` from
+    ``generator``, in module order; zero biases, unit BN (scale 1, bias 0,
+    mean 0, var 1)."""
+    for mod in model.modules():
+        if isinstance(mod, (PointConv, Dense)):
+            mod.reset_parameters(generator)
+        elif isinstance(mod, ScheduledBatchNorm):
+            with torch.no_grad():
+                mod.scale.fill_(1.0)
+                mod.bias.zero_()
+                mod.mean.zero_()
+                mod.var.fill_(1.0)

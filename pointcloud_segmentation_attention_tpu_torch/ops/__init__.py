@@ -1,10 +1,12 @@
 """Geometry ops: plain PyTorch versions (``geometry``) and the public
 dispatching functions (``dispatch``), which send CUDA tensors to the
-hand-written kernels in ``ops/cuda/``."""
+hand-written kernels in ``ops/cuda/``.  ``knn_point`` is plain PyTorch on
+every device, as it is plain XLA in the JAX package."""
 from pointcloud_segmentation_attention_tpu_torch.ops.geometry import (
     gather_point,
     group_point,
     interpolation_weights,
+    knn_point,
     prob_sample,
 )
 from pointcloud_segmentation_attention_tpu_torch.ops.dispatch import (
@@ -22,6 +24,7 @@ __all__ = [
     "group_point",
     "group_point_with_counts",
     "interpolation_weights",
+    "knn_point",
     "prob_sample",
     "three_interpolate",
     "three_nn",

@@ -118,6 +118,33 @@ def ball_query(xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float,
     return torch.cat(idx_parts, dim=1), torch.cat(cnt_parts, dim=1)
 
 
+def knn_point(k: int, xyz: torch.Tensor,
+              new_xyz: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` nearest points of xyz (B,N,3) to each query centre of
+    new_xyz (B,M,3): squared dist (B,M,k) ascending and idx (B,M,k) int32,
+    lower index on ties (a stable sort, as JAX's ``lax.top_k``).  With
+    ``k > N`` the farthest neighbour repeats.  Plain PyTorch on every
+    device: the JAX package computes it in XLA, not in a Pallas kernel."""
+    b, n, _ = xyz.shape
+    m = new_xyz.shape[1]
+    xyz = xyz.float()
+    new_xyz = new_xyz.float()
+    k_eff = min(k, n)
+    chunk = _query_chunk(m, b, n)
+    dists, idxs = [], []
+    for s in range(0, m, chunk):
+        d2 = _pairwise_sqdist(new_xyz[:, s:s + chunk], xyz)  # (B, Mc, N)
+        vals, order = torch.sort(d2, dim=-1, stable=True)
+        dists.append(vals[..., :k_eff])
+        idxs.append(order[..., :k_eff].to(torch.int32))
+    dist, idx = torch.cat(dists, dim=1), torch.cat(idxs, dim=1)
+    if k_eff < k:
+        pad = k - k_eff
+        dist = torch.cat([dist, dist[..., -1:].expand(b, m, pad)], dim=-1)
+        idx = torch.cat([idx, idx[..., -1:].expand(b, m, pad)], dim=-1)
+    return dist, idx
+
+
 def three_nn(xyz1: torch.Tensor, xyz2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """3 nearest known points (xyz2, (B,M,3)) of each unknown point (xyz1,
     (B,N,3)): squared dist (B,N,3) ascending, idx (B,N,3) int32, lower index

@@ -2,7 +2,9 @@
 recipes, each a ``run_*`` function and a ``main`` with ``--device``:
 zero-precompute training, synthetic convergence, the Table 1 attention and
 Table 3 feature ablations, the Table 4 context margin, the matched-cost
-diversity comparison and the attention wire parity."""
+diversity comparison and the attention wire parity; and the PointNet++
+classification and part-segmentation convergence runs
+(``family_convergence``)."""
 from pointcloud_segmentation_attention_tpu_torch.recipes.attention_ablation import (
     run_attention_ablation,
 )
@@ -15,6 +17,10 @@ from pointcloud_segmentation_attention_tpu_torch.recipes.context_margin import (
 from pointcloud_segmentation_attention_tpu_torch.recipes.diversity_matched import (
     run_diversity_matched,
 )
+from pointcloud_segmentation_attention_tpu_torch.recipes.family_convergence import (
+    run_cls_convergence,
+    run_partseg_convergence,
+)
 from pointcloud_segmentation_attention_tpu_torch.recipes.feature_ablation import (
     run_feature_ablation,
 )
@@ -25,6 +31,6 @@ from pointcloud_segmentation_attention_tpu_torch.recipes.zero_precompute import 
     run_zero_precompute,
 )
 
-__all__ = ["run_attention_ablation", "run_attention_wire_parity", "run_context_margin",
-           "run_diversity_matched", "run_feature_ablation", "run_synthetic_convergence",
-           "run_zero_precompute"]
+__all__ = ["run_attention_ablation", "run_attention_wire_parity", "run_cls_convergence",
+           "run_context_margin", "run_diversity_matched", "run_feature_ablation",
+           "run_partseg_convergence", "run_synthetic_convergence", "run_zero_precompute"]

@@ -1,8 +1,10 @@
 """Training-side modules of the port: the train state (Adam), the train,
 eval and prediction steps, losses, metrics, schedules, the checkpoint bridge
 to the JAX package and the checkpoint manager, BN folding for serving,
-the device-resident replay and the on-device chunk sampler.  The trainer
-entry point is ``train/trainer.py``."""
+the device-resident replay and the on-device chunk sampler; the
+classification and part-segmentation steps (``cls_steps``).  The trainer
+entry points are ``train/trainer.py`` (ScanNet), ``train/cls_trainer.py``
+(ModelNet) and ``train/partseg_trainer.py`` (ShapeNet-part)."""
 from pointcloud_segmentation_attention_tpu_torch.train.bn_fold import fold_batchnorm_for_inference
 from pointcloud_segmentation_attention_tpu_torch.train.checkpoints import (
     BestKeeper,
@@ -16,6 +18,12 @@ from pointcloud_segmentation_attention_tpu_torch.train.checkpoints import (
     restore_checkpoint,
     save_checkpoint,
     save_jax_checkpoint,
+)
+from pointcloud_segmentation_attention_tpu_torch.train.cls_steps import (
+    cls_eval_step,
+    cls_train_step,
+    partseg_eval_step,
+    partseg_train_step,
 )
 from pointcloud_segmentation_attention_tpu_torch.train.device_replay import (
     DeviceReplay,
@@ -35,6 +43,7 @@ from pointcloud_segmentation_attention_tpu_torch.train.steps import (
 from pointcloud_segmentation_attention_tpu_torch.train.train_state import TrainState
 
 __all__ = ["BestKeeper", "DeviceReplay", "ResidentScenes", "TrainState", "best_checkpoint",
+           "cls_eval_step", "cls_train_step", "partseg_eval_step", "partseg_train_step",
            "export_jax_state", "export_jax_variables", "fold_batchnorm_for_inference",
            "latest_checkpoint", "load_jax_checkpoint", "load_jax_state", "load_jax_variables",
            "make_resident_train_step", "make_sampling_train_step", "restore_checkpoint",

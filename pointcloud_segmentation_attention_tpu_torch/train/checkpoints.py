@@ -7,6 +7,10 @@ The JAX package's ``save_checkpoint`` writes one npz of flat keys,
 The port names its modules as Flax does and keeps kernels in (in, out)
 layout, so a key maps onto the state dict by its path: parameters under
 ``params/``, buffers (the BN running statistics) under ``batch_stats/``.
+The same holds for every registry family: the multi-scale SA branches
+(``sa1/branch0/conv1/kernel``), the group-all level (``sa3/mlp/conv2``),
+the heads (``head/fc1/bn/scale``, ``head/fc3/bias``) and the part
+segmenters' ``fp1``-``fp3``.
 
 For ``optax.adam(schedule)`` the optimizer state is the pair (Adam's count,
 mu, nu; the schedule's count), written as ``opt_state/0/.count``,

@@ -1,0 +1,124 @@
+"""Train and eval steps for classification and part segmentation: the
+counterparts of the JAX package's ``train/cls_steps.py``.
+
+A training step is the flagship's (``train/steps.py``): the train-mode
+forward with the BN EMA decay of ``bn_schedule`` at the pre-increment step
+and a dropout generator seeded from (seed, step), the mean cross entropy,
+backward (through the gather and interpolation kernels on the card), and
+one Adam update at ``state``'s schedule (the trainers pass the upstream
+``upstream_learning_rate`` / ``upstream_bn_momentum``).  With
+``reg_weight``, a model whose output is ``(logits, end_points)`` with a
+T-Net ``transform`` adds the orthogonality loss; no ported model has one
+(the PointNet v1 family is not ported), so it stays a no-op, as in the JAX
+package for these models.  Batches are dicts of numpy arrays or tensors,
+copied to the model's device.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+
+from pointcloud_segmentation_attention_tpu_torch.train import losses, schedules
+from pointcloud_segmentation_attention_tpu_torch.train.steps import (
+    _device_of,
+    _dropout_generator,
+    _to_device,
+)
+from pointcloud_segmentation_attention_tpu_torch.train.train_state import TrainState
+
+
+def _split_xyz_features(points: torch.Tensor):
+    """(B,N,3[+k]) -> (xyz, features | None), the classifiers' input split."""
+    if points.shape[-1] > 3:
+        return points[..., :3], points[..., 3:]
+    return points, None
+
+
+def orthogonality_loss(transform: torch.Tensor) -> torch.Tensor:
+    """0.5 * ||T T^t - I||_F^2 summed over the batch (``tf.nn.l2_loss``)."""
+    k = transform.shape[-1]
+    diff = transform @ transform.transpose(-1, -2) - torch.eye(
+        k, dtype=transform.dtype, device=transform.device)
+    return 0.5 * (diff * diff).sum()
+
+
+def _train_step(state: TrainState, args, labels: torch.Tensor, dropout_seed: int,
+                bn_schedule: Callable[[int], float], reg_weight: float):
+    model = state.model
+    dev = _device_of(model)
+    bn_momentum = bn_schedule(state.step)
+    generator = _dropout_generator(dev, dropout_seed, state.step)
+    model.train()
+    model.zero_grad(set_to_none=True)
+    out = model(*args, bn_momentum=bn_momentum, generator=generator)
+    logits, end_points = out if isinstance(out, tuple) else (out, {})
+    loss = losses.mean_softmax_cross_entropy(logits, labels)
+    ortho = torch.zeros((), dtype=torch.float32, device=dev)
+    if reg_weight and "transform" in end_points:
+        ortho = orthogonality_loss(end_points["transform"].float())
+        loss = loss + reg_weight * ortho
+    loss.backward()
+    lr = state.apply_gradients()
+    preds = logits.detach().argmax(dim=-1)
+    acc = (preds == labels).float().mean()
+    return state, {"loss": loss.detach(), "accuracy": acc, "ortho_loss": ortho.detach(),
+                   "learning_rate": lr}
+
+
+def cls_train_step(state: TrainState, batch: Dict, dropout_seed: int = 0, *,
+                   bn_schedule: Callable[[int], float] = schedules.upstream_bn_momentum,
+                   reg_weight: float = 0.0):
+    """One classification step (mean CE); ``batch``: 'points' (B,N,3[+k]),
+    'labels' (B,).  Updates ``state`` in place; returns ``(state, metrics)``
+    with device tensors 'loss', 'accuracy', 'ortho_loss' and the float
+    'learning_rate'."""
+    batch = _to_device(batch, _device_of(state.model))
+    return _train_step(state, _split_xyz_features(batch["points"]), batch["labels"],
+                       dropout_seed, bn_schedule, reg_weight)
+
+
+def cls_eval_step(state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
+    """Eval forward: 'logits', 'predictions' and 'accuracy' as device tensors."""
+    model = state.model
+    batch = _to_device(batch, _device_of(model))
+    logits = _eval_logits(model, _split_xyz_features(batch["points"]))
+    preds = logits.argmax(dim=-1)
+    return {"logits": logits, "predictions": preds,
+            "accuracy": (preds == batch["labels"]).float().mean()}
+
+
+def partseg_train_step(state: TrainState, batch: Dict, dropout_seed: int = 0, *,
+                       bn_schedule: Callable[[int], float] = schedules.upstream_bn_momentum,
+                       reg_weight: float = 0.0):
+    """One part-segmentation step (mean CE over all points); ``batch``:
+    'points' (B,N,6), 'labels' (B,N) and, for the one-hot model, 'cls' (B,).
+    Returns ``(state, metrics)`` as ``cls_train_step``."""
+    batch = _to_device(batch, _device_of(state.model))
+    return _train_step(state, _partseg_args(batch), batch["labels"], dropout_seed,
+                       bn_schedule, reg_weight)
+
+
+def partseg_eval_step(state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
+    """Eval forward: 'logits' (B,N,parts) and 'predictions' (B,N)."""
+    model = state.model
+    batch = _to_device(batch, _device_of(model))
+    logits = _eval_logits(model, _partseg_args(batch))
+    return {"logits": logits, "predictions": logits.argmax(dim=-1)}
+
+
+def _partseg_args(batch: Dict[str, torch.Tensor]):
+    return (batch["points"], batch["cls"]) if "cls" in batch else (batch["points"],)
+
+
+def _eval_logits(model, args) -> torch.Tensor:
+    """Eval-mode logits (running BN statistics, no dropout); the model's
+    train/eval mode is restored afterwards."""
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            out = model(*args)
+    finally:
+        model.train(was_training)
+    return out[0] if isinstance(out, tuple) else out

@@ -148,8 +148,11 @@ def test_bridge_round_trip_and_key_checks(tmp_path):
 
 
 def test_unported_names_and_poolings_raise():
-    with pytest.raises(KeyError):
-        tmodels.get_model("cls_ssg", device="cpu")
+    for name in ("pointnet1_cls", "attention_net"):
+        with pytest.raises(KeyError, match="ROADMAP Queue 1 item 6"):
+            tmodels.get_model(name, device="cpu")
+    with pytest.raises(KeyError, match="unknown model"):
+        tmodels.get_model("no_such_model", device="cpu")
     with pytest.raises(ValueError, match="unknown pooling"):
         tmodels.get_model("sem_seg_features", device="cpu",
                           sa_pooling=("max", "median", "max", "max"))

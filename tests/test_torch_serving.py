@@ -47,6 +47,73 @@ def test_grid_assign_matches_jax(scene):
             np.testing.assert_array_equal(g, w)
 
 
+def _boundary_cloud(seed=0):
+    """Points whose x or y sits within a few float32 ulps of a margin
+    boundary, ``float32(+-0.2 + 1.5k)`` for k = 1..5, where float32 and
+    float64 arithmetic put the point on different sides; with the origin
+    as the grid's minimum."""
+    rng = np.random.RandomState(seed)
+    edges = []
+    for k in range(1, 6):
+        for centre in (np.float32(0.2 + 1.5 * k), np.float32(-0.2 + 1.5 * k)):
+            v = centre
+            for _ in range(3):
+                v = np.nextafter(v, np.float32(-np.inf))
+            for _ in range(7):  # 3 ulps below the edge to 3 above
+                edges.append(v)
+                v = np.nextafter(v, np.float32(np.inf))
+    edges = np.unique(np.array(edges, np.float32))
+    n = 4 * len(edges)
+    pts = np.empty((n + 2, 3), np.float32)
+    pts[0] = 0.0
+    pts[1] = (8.0, 8.0, 2.0)
+    pts[2:, 0] = np.concatenate([edges, edges, rng.rand(2 * len(edges)) * 8])
+    pts[2:, 1] = np.concatenate([rng.rand(len(edges)) * 8, edges, edges,
+                                 rng.choice(edges, len(edges))])
+    pts[2:, 2] = rng.rand(n) * 2
+    return pts
+
+
+def test_grid_assign_at_margin_boundaries_matches_jax_compiled():
+    """The port's compiled and numpy assignments equal the JAX package's
+    compiled one (its main path wherever g++ exists) at float32 margin
+    boundaries; a float64 assignment puts point 1 of the four-point cloud
+    outside cell 2's context."""
+    assert jnative.available()
+    four = np.array([[0, 0, 0], [1.3, 0.5, 0.1], [3.0, 2.0, 0.5], [2.8, 1.0, 0.2]],
+                    np.float32)
+    cells, pids, ncx, ncy = tnative.grid_chunk_assign(four)
+    np.testing.assert_array_equal(cells, [0, 0, 2, 3, 2])
+    np.testing.assert_array_equal(pids, [0, 1, 1, 2, 3])
+    for bad in (np.zeros((4, 6), np.float32), np.zeros((0, 3), np.float32)):
+        with pytest.raises(ValueError, match="points must be"):
+            tnative.grid_chunk_assign(bad)
+    for pts in (four, _boundary_cloud()):
+        for cell, margin in ((1.5, 0.2), (1.5, 0.0), (1.0, 0.3)):
+            want = jnative.grid_chunk_assign(pts, cell=cell, margin=margin)
+            for fn in (tnative.grid_chunk_assign, tnative.grid_chunk_assign_numpy):
+                got = fn(pts, cell=cell, margin=margin)
+                for w, g in zip(want, got):
+                    np.testing.assert_array_equal(g, w, err_msg=f"{fn.__name__} {cell} {margin}")
+
+
+def test_scene_chunks_at_margin_boundaries_identical_to_jax(scene):
+    edge = _boundary_cloud(seed=1)
+    rng = np.random.RandomState(2)
+    pick = rng.randint(0, len(scene["points"]), len(edge))
+    room = {k: np.concatenate([scene[k], scene[k][pick]]) for k in
+            ("labels", "colors", "normals")}
+    # The room's minimum is the edge cloud's origin, so the edges stay exact.
+    room["points"] = np.concatenate([scene["points"] - scene["points"].min(0), edge])
+    assert jnative.available()
+    want = jchunks.grid_chunks_for_eval(
+        room["points"], room["labels"], room["colors"], room["normals"], 1024,
+        rng=np.random.RandomState(0))
+    got = tfull.scene_chunks(room, npoints=1024, seed=0)
+    for k in ("points", "labels", "colors", "normals", "masks", "orig_idx"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
 @pytest.mark.parametrize("npoints", [8192, 1024])
 def test_scene_chunks_identical_to_jax(scene, npoints):
     want = jchunks.grid_chunks_for_eval(
