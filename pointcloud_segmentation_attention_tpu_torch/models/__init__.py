@@ -1,16 +1,23 @@
-"""Model registry of the port: the names ported so far of the JAX package's
+"""Model registry of the port: every name of the JAX package's
 ``models/__init__.py``: the ScanNet segmentation family, the PointNet++
 classifiers (``cls_ssg``, ``cls_msg``) and part segmenters (``part_seg``,
-``part_seg_msg_one_hot``).  The full attention nets and the PointNet v1
-family raise ``KeyError`` naming their ROADMAP item."""
+``part_seg_msg_one_hot``), the full attention nets (``attention_net``,
+``attention_net_mlp``, ``pooling_attention_net``) and the PointNet v1
+family (``pointnet1_*``)."""
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
 
 from pointcloud_segmentation_attention_tpu_torch.device import resolve
+from pointcloud_segmentation_attention_tpu_torch.models import pointnet1
+from pointcloud_segmentation_attention_tpu_torch.models.attention_nets import (
+    AttentionNetModel,
+    PoolingAttentionNetModel,
+)
 from pointcloud_segmentation_attention_tpu_torch.models.cls import ClsMSG, ClsSSG
 from pointcloud_segmentation_attention_tpu_torch.models.part_seg import (
     PartSegMSGOneHot,
@@ -29,18 +36,26 @@ _REGISTRY = {
     "sem_seg_attention_single_layer": dict(in_features=0),  # pooling from layer_idx
     "sem_seg_attention_and_pooling": dict(in_features=0, sa_pooling=("attention_and_pool",) * 4),
 }
-# The PointNet++ classification and part-segmentation families: registry
-# name -> class (ModelNet40: 40 classes; ShapeNet-part: 50 parts).
+# The other families: registry name -> class (ModelNet40: 40 classes;
+# ShapeNet-part: 50 parts; the attention nets: ScanNet's 21; S3DIS: 13).
 _FAMILIES = {
     "cls_ssg": ClsSSG,
     "cls_msg": ClsMSG,
     "part_seg": PartSegSSG,
     "part_seg_msg_one_hot": PartSegMSGOneHot,
+    "attention_net": AttentionNetModel,
+    "attention_net_mlp": functools.partial(AttentionNetModel, inner_kind="mlp"),
+    "pooling_attention_net": PoolingAttentionNetModel,
 }
-# Registry names of the JAX package that are not ported yet.
-_NOT_PORTED = ("attention_net", "attention_net_mlp", "pooling_attention_net",
-               "pointnet1_cls_basic", "pointnet1_cls", "pointnet1_seg",
-               "pointnet1_part_seg", "pointnet1_sem_seg")
+# The PointNet v1 family takes the point block alone (xyz, or S3DIS's nine
+# channels): ``in_features`` may be given only as 0.
+_V1 = {
+    "pointnet1_cls_basic": pointnet1.PointNetClsBasic,
+    "pointnet1_cls": pointnet1.PointNetCls,
+    "pointnet1_seg": pointnet1.PointNetSeg,
+    "pointnet1_part_seg": pointnet1.PointNetPartSegJoint,
+    "pointnet1_sem_seg": pointnet1.PointNetSemSeg,
+}
 
 
 def _single_layer_pooling(layer_idx: int):
@@ -54,17 +69,19 @@ def get_model(name: str, *, device="cuda", generator: Optional[torch.Generator] 
               **kwargs) -> nn.Module:
     """Build a registry model with weights drawn from ``generator`` and move
     it to ``device``.  ``kwargs`` go to the model's class (``SemSegNet``
-    for the sem_seg names, overriding the name's defaults; ``ClsSSG`` and
-    ``ClsMSG`` take ``num_classes``, ``in_features`` and ``dropout_rate``;
-    the part segmenters ``num_classes`` and ``dropout_rate``);
-    ``sem_seg_attention_single_layer`` also takes ``layer_idx``.  Names
-    not ported yet raise ``KeyError``."""
-    if name in _NOT_PORTED:
-        raise KeyError(f"model '{name}' is not ported yet (ROADMAP Queue 1 item 6: the "
-                       f"full attention nets and the PointNet v1 family)")
-    if name not in _REGISTRY and name not in _FAMILIES:
+    for the sem_seg names, overriding the name's defaults; ``ClsSSG``,
+    ``ClsMSG`` and the attention nets take ``num_classes``, ``in_features``
+    and ``dropout_rate``; the part segmenters ``num_classes`` and
+    ``dropout_rate``; the PointNet v1 models their classes' arguments);
+    ``sem_seg_attention_single_layer`` also takes ``layer_idx``.  An
+    unknown name raises ``KeyError``."""
+    if name not in available_models():
         raise KeyError(f"unknown model '{name}'; available: {available_models()}")
-    if name in _FAMILIES:
+    if name in _V1:
+        if kwargs.pop("in_features", 0):
+            raise ValueError(f"{name} takes its point block alone: in_features must be 0")
+        model = _V1[name](**kwargs)
+    elif name in _FAMILIES:
         model = _FAMILIES[name](**kwargs)
     else:
         if name == "sem_seg_attention_single_layer":
@@ -97,8 +114,9 @@ def seeded_model(name: str = "sem_seg_features", seed: int = 0, device="cuda",
 
 
 def available_models():
-    return sorted({*_REGISTRY, *_FAMILIES})
+    return sorted({*_REGISTRY, *_FAMILIES, *_V1})
 
 
-__all__ = ["ClsMSG", "ClsSSG", "PartSegMSGOneHot", "PartSegSSG", "SemSegNet",
-           "available_models", "get_model", "seeded_model"]
+__all__ = ["AttentionNetModel", "ClsMSG", "ClsSSG", "PartSegMSGOneHot", "PartSegSSG",
+           "PoolingAttentionNetModel", "SemSegNet", "available_models", "get_model",
+           "pointnet1", "seeded_model"]

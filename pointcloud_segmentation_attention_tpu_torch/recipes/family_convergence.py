@@ -1,20 +1,25 @@
-"""Convergence runs of the PointNet++ classification and part-segmentation
-families, each through its own trainer and evaluator: the port of the JAX
-package's ``recipes/family_convergence.py``.
+"""Convergence runs of every trainable model family, each through its own
+trainer and evaluator: the port of the JAX package's
+``recipes/family_convergence.py``.
 
 - ``run_cls_convergence``: synthetic ModelNet (class-distinctive ellipsoid
-  shells) -> ``train_classification`` -> the multi-angle voting evaluator.
+  shells) -> ``train_classification`` -> the multi-angle voting evaluator
+  (the PointNet++ classifiers and ``pointnet1_cls``, whose T-Net
+  orthogonality loss is live).
 - ``run_partseg_convergence``: synthetic ShapeNet-part (z-slice parts of
   category-distinctive ellipsoids) -> ``train_part_segmentation`` ->
   per-category part IoU.
+- ``run_s3dis_convergence``: synthetic S3DIS rooms -> 1 m blocks ->
+  ``train_s3dis`` (``pointnet1_sem_seg``) -> the rooms' block mIoU.
 - ``run_attention_convergence``: the ScanNet pipeline with attention
   pooling (``synthetic_convergence`` with an attention model).
+- ``run_attention_net_convergence``: the full attention nets through
+  ``train(config)`` with the on-device sampler.
 
-The PointNet v1 and full-attention-net arms (``run_s3dis_convergence``,
-``run_v1_scannet_convergence``, ``run_attention_net_convergence`` and
-``run_extended``, which trains some of them) raise ``NotImplementedError``:
-those families are not ported yet (ROADMAP Queue 1 item 6).  Defaults equal
-the JAX package's; every ``run_*`` takes ``device`` (default cuda).
+``run_v1_scannet_convergence`` and ``run_extended`` (which trains it) raise
+``NotImplementedError``: the v1 ScanNet trainer is not ported yet (ROADMAP
+Queue 1 item 6).  Defaults equal the JAX package's; every ``run_*`` takes
+``device`` (default cuda).
 """
 from __future__ import annotations
 
@@ -23,20 +28,27 @@ import os
 from typing import Optional
 
 from pointcloud_segmentation_attention_tpu_torch.data.modelnet import write_synthetic_modelnet
+from pointcloud_segmentation_attention_tpu_torch.data.s3dis import make_synthetic_room
+from pointcloud_segmentation_attention_tpu_torch.data.scannet.scenes import (
+    write_synthetic_dataset,
+)
 from pointcloud_segmentation_attention_tpu_torch.data.shapenet_part import (
     write_synthetic_shapenet_part,
 )
 from pointcloud_segmentation_attention_tpu_torch.recipes.synthetic_convergence import (
     run_synthetic_convergence,
 )
+from pointcloud_segmentation_attention_tpu_torch.train import trainer
 from pointcloud_segmentation_attention_tpu_torch.train.cls_trainer import train_classification
 from pointcloud_segmentation_attention_tpu_torch.train.partseg_trainer import (
     train_part_segmentation,
 )
+from pointcloud_segmentation_attention_tpu_torch.train.s3dis_trainer import train_s3dis
+from pointcloud_segmentation_attention_tpu_torch.utils.config import TrainConfig
 
 _CACHE_SENTINEL = "DONE"
-_NOT_PORTED = ("the PointNet v1 and full-attention-net families are not ported yet "
-               "(ROADMAP Queue 1 item 6)")
+_NOT_PORTED = ("the PointNet v1 ScanNet trainer (pc_util, v1_compat, v1_scannet_trainer) "
+               "is not ported yet (ROADMAP Queue 1 item 6)")
 
 
 def _cache_complete(data_root: str) -> bool:
@@ -127,9 +139,32 @@ def run_attention_convergence(workdir: str, model: str = "sem_seg_attention",
     return results
 
 
-def run_s3dis_convergence(workdir: str, **kwargs) -> dict:
-    """PointNet v1 S3DIS semantic segmentation: not ported yet."""
-    raise NotImplementedError(f"run_s3dis_convergence: {_NOT_PORTED}")
+def run_s3dis_convergence(
+    workdir: str,
+    n_train_rooms: int = 4,
+    n_test_rooms: int = 2,
+    room_points: int = 8000,
+    num_point: int = 512,
+    batch_size: int = 8,
+    epochs: int = 20,
+    n_devices: Optional[int] = None,
+    seed: int = 0,
+    *,
+    device="cuda",
+) -> dict:
+    """PointNet v1 S3DIS semantic segmentation: synthetic rooms -> block
+    dataset -> ``train_s3dis`` -> the test rooms' block mIoU
+    (``best_miou``).  Only floor, ceiling and wall are predictable from the
+    geometry (the furniture blobs' classes are random per room), so the
+    target is an mIoU well above chance from those classes."""
+    rooms = [make_synthetic_room(room_points, seed=seed + i)
+             for i in range(n_train_rooms + n_test_rooms)]
+    summary = train_s3dis(rooms[:n_train_rooms], rooms[n_train_rooms:], num_point=num_point,
+                          batch_size=batch_size, epochs=epochs,
+                          log_dir=os.path.join(workdir, "s3dis"), n_devices=n_devices,
+                          seed=seed, device=device)
+    summary["model"] = "pointnet1_sem_seg"
+    return summary
 
 
 def run_v1_scannet_convergence(workdir: str, **kwargs) -> dict:
@@ -137,30 +172,64 @@ def run_v1_scannet_convergence(workdir: str, **kwargs) -> dict:
     raise NotImplementedError(f"run_v1_scannet_convergence: {_NOT_PORTED}")
 
 
-def run_attention_net_convergence(workdir: str, **kwargs) -> dict:
-    """The Keras-style AttentionNet family: not ported yet."""
-    raise NotImplementedError(f"run_attention_net_convergence: {_NOT_PORTED}")
+def run_attention_net_convergence(
+    workdir: str,
+    model: str = "attention_net",
+    n_train_scenes: int = 8,
+    n_val_scenes: int = 2,
+    scene_points: int = 16000,
+    n_points: int = 2048,
+    batch_size: int = 4,
+    max_steps: int = 200,
+    n_devices: Optional[int] = None,
+    seed: int = 0,
+    *,
+    device="cuda",
+) -> dict:
+    """A full attention net (``attention_net``, ``attention_net_mlp`` or
+    ``pooling_attention_net``) through ``train(config)`` with the
+    on-device sampler, its validation and best checkpoint: the trainer's
+    summary (``final_train_loss``, ``best_val_miou``, ``final_step``)."""
+    data_root = os.path.join(
+        workdir, f"scannet_attnet_{n_train_scenes}_{n_val_scenes}_{scene_points}_{seed}")
+    if not _cache_complete(data_root):
+        write_synthetic_dataset(data_root, n_train=n_train_scenes, n_val=n_val_scenes,
+                                n_points=scene_points, seed=seed, color_coded=True)
+        _mark_cache_complete(data_root)
+    config = TrainConfig(
+        data_root=data_root, model=model, input="sampler",
+        log_dir=os.path.join(workdir, f"attnet_{model}"), n_points=n_points,
+        batch_size=batch_size, seed=seed, epochs=10**6,
+        n_epochs_to_val=max(1, max_steps // max(1, n_train_scenes // batch_size) // 6),
+        save_every_epochs=0, n_devices=n_devices)
+    summary = trainer.train(config, max_steps=max_steps, device=device)
+    summary["model"] = model
+    return summary
 
 
 def run_extended(workdir: str, **kwargs) -> dict:
-    """The extension arms, which train ``pointnet1_seg``, ``attention_net``
-    and the v1 whole-scene trainer besides the ported families: not ported
-    yet.  Their ported arms run alone through ``main --arms``."""
+    """The extension arms, which train the v1 whole-scene trainer besides
+    the ported families: not ported yet.  Their ported arms run alone
+    through ``main --arms``."""
     raise NotImplementedError(f"run_extended: {_NOT_PORTED}")
 
 
 # main's arms: name -> (function, keyword arguments besides epochs).  The
-# JAX main runs cls_ssg, pointnet1_cls, part_seg, pointnet1_sem_seg and the
-# attention arm; cls_msg and part_seg_msg_one_hot are its extended arms.
+# default arms are the JAX main's (cls_ssg, pointnet1_cls, part_seg,
+# pointnet1_sem_seg, then the attention arm); the others are its extended
+# arms, each alone.
 ARMS = {
     "cls_ssg": (run_cls_convergence, dict(model_name="cls_ssg")),
-    "cls_msg": (run_cls_convergence, dict(model_name="cls_msg", normal_channel=True)),
+    "pointnet1_cls": (run_cls_convergence, dict(model_name="pointnet1_cls")),
     "part_seg": (run_partseg_convergence, dict(model_name="part_seg")),
+    "pointnet1_sem_seg": (run_s3dis_convergence, {}),
+    "cls_msg": (run_cls_convergence, dict(model_name="cls_msg", normal_channel=True)),
     "part_seg_msg_one_hot": (run_partseg_convergence,
                              dict(model_name="part_seg_msg_one_hot")),
+    "pointnet1_seg": (run_partseg_convergence, dict(model_name="pointnet1_seg")),
 }
-UNPORTED_ARMS = ("pointnet1_cls", "pointnet1_seg", "pointnet1_sem_seg", "attention_net",
-                 "v1_scannet_whole")
+DEFAULT_ARMS = ("cls_ssg", "pointnet1_cls", "part_seg", "pointnet1_sem_seg")
+UNPORTED_ARMS = ("v1_scannet_whole",)
 
 
 def main(argv=None):
@@ -171,7 +240,7 @@ def main(argv=None):
     p.add_argument("--epochs", type=int, default=60)
     p.add_argument("--attention_epochs", type=int, default=100)
     p.add_argument("--results", default=None)
-    p.add_argument("--arms", nargs="+", default=["cls_ssg", "part_seg"],
+    p.add_argument("--arms", nargs="+", default=list(DEFAULT_ARMS),
                    help=f"any of {sorted(ARMS)}; {list(UNPORTED_ARMS)} are not ported yet")
     p.add_argument("--skip_attention", action="store_true")
     p.add_argument("--extended", action="store_true")
@@ -188,7 +257,9 @@ def main(argv=None):
     results = {}
     for arm in args.arms:
         fn, kw = ARMS[arm]
-        results[arm] = fn(args.workdir, epochs=args.epochs, device=args.device, **kw)
+        # The JAX main caps the S3DIS arm at 30 epochs.
+        epochs = min(args.epochs, 30) if fn is run_s3dis_convergence else args.epochs
+        results[arm] = fn(args.workdir, epochs=epochs, device=args.device, **kw)
     if not args.skip_attention:
         results["sem_seg_attention"] = run_attention_convergence(
             args.workdir, epochs=args.attention_epochs, n_train_scenes=8, n_val_scenes=2,

@@ -100,6 +100,9 @@ def main(argv=None):
     p.add_argument("--workdir", default=None)
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--n_train_scenes", type=int, default=8)
+    p.add_argument("--n_val_scenes", type=int, default=2)
+    p.add_argument("--n_epochs_to_val", type=int, default=None)
+    p.add_argument("--seed", type=int, default=0)
     p.add_argument("--scene_points", type=int, default=16000)
     p.add_argument("--n_points", type=int, default=2048)
     p.add_argument("--batch_size", type=int, default=4)
@@ -108,8 +111,10 @@ def main(argv=None):
     args = p.parse_args(argv)
     workdir = args.workdir or tempfile.mkdtemp(prefix="psa_zero_pre_")
     out = run_zero_precompute(workdir, n_train_scenes=args.n_train_scenes,
+                              n_val_scenes=args.n_val_scenes,
                               scene_points=args.scene_points, n_points=args.n_points,
                               batch_size=args.batch_size, epochs=args.epochs,
+                              n_epochs_to_val=args.n_epochs_to_val, seed=args.seed,
                               results_path=args.results_path, device=args.device)
     print(json.dumps(out))
 

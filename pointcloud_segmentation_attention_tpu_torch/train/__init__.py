@@ -4,7 +4,9 @@ to the JAX package and the checkpoint manager, BN folding for serving,
 the device-resident replay and the on-device chunk sampler; the
 classification and part-segmentation steps (``cls_steps``).  The trainer
 entry points are ``train/trainer.py`` (ScanNet), ``train/cls_trainer.py``
-(ModelNet) and ``train/partseg_trainer.py`` (ShapeNet-part)."""
+(ModelNet), ``train/partseg_trainer.py`` (ShapeNet-part),
+``train/v1_partseg_trainer.py`` (the PointNet v1 joint part segmenter on h5
+shards) and ``train/s3dis_trainer.py`` (S3DIS)."""
 from pointcloud_segmentation_attention_tpu_torch.train.bn_fold import fold_batchnorm_for_inference
 from pointcloud_segmentation_attention_tpu_torch.train.checkpoints import (
     BestKeeper,

@@ -8,10 +8,10 @@ backward (through the gather and interpolation kernels on the card), and
 one Adam update at ``state``'s schedule (the trainers pass the upstream
 ``upstream_learning_rate`` / ``upstream_bn_momentum``).  With
 ``reg_weight``, a model whose output is ``(logits, end_points)`` with a
-T-Net ``transform`` adds the orthogonality loss; no ported model has one
-(the PointNet v1 family is not ported), so it stays a no-op, as in the JAX
-package for these models.  Batches are dicts of numpy arrays or tensors,
-copied to the model's device.
+T-Net ``transform`` (``pointnet1_cls``, ``pointnet1_seg``) adds
+``reg_weight`` times the orthogonality loss.  A classifier fed xyz alone is
+called with ``(xyz,)``, as the JAX package calls it.  Batches are dicts of
+numpy arrays or tensors, copied to the model's device.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from typing import Callable, Dict
 
 import torch
 
+from pointcloud_segmentation_attention_tpu_torch.models.pointnet1 import orthogonality_loss
 from pointcloud_segmentation_attention_tpu_torch.train import losses, schedules
 from pointcloud_segmentation_attention_tpu_torch.train.steps import (
     _device_of,
@@ -28,19 +29,12 @@ from pointcloud_segmentation_attention_tpu_torch.train.steps import (
 from pointcloud_segmentation_attention_tpu_torch.train.train_state import TrainState
 
 
-def _split_xyz_features(points: torch.Tensor):
-    """(B,N,3[+k]) -> (xyz, features | None), the classifiers' input split."""
+def _cls_args(points: torch.Tensor):
+    """(B,N,3[+k]) -> the classifier's arguments: (xyz, features), or
+    (xyz,) for points without features."""
     if points.shape[-1] > 3:
         return points[..., :3], points[..., 3:]
-    return points, None
-
-
-def orthogonality_loss(transform: torch.Tensor) -> torch.Tensor:
-    """0.5 * ||T T^t - I||_F^2 summed over the batch (``tf.nn.l2_loss``)."""
-    k = transform.shape[-1]
-    diff = transform @ transform.transpose(-1, -2) - torch.eye(
-        k, dtype=transform.dtype, device=transform.device)
-    return 0.5 * (diff * diff).sum()
+    return (points,)
 
 
 def _train_step(state: TrainState, args, labels: torch.Tensor, dropout_seed: int,
@@ -74,7 +68,7 @@ def cls_train_step(state: TrainState, batch: Dict, dropout_seed: int = 0, *,
     with device tensors 'loss', 'accuracy', 'ortho_loss' and the float
     'learning_rate'."""
     batch = _to_device(batch, _device_of(state.model))
-    return _train_step(state, _split_xyz_features(batch["points"]), batch["labels"],
+    return _train_step(state, _cls_args(batch["points"]), batch["labels"],
                        dropout_seed, bn_schedule, reg_weight)
 
 
@@ -82,7 +76,7 @@ def cls_eval_step(state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
     """Eval forward: 'logits', 'predictions' and 'accuracy' as device tensors."""
     model = state.model
     batch = _to_device(batch, _device_of(model))
-    logits = _eval_logits(model, _split_xyz_features(batch["points"]))
+    logits = _eval_logits(model, _cls_args(batch["points"]))
     preds = logits.argmax(dim=-1)
     return {"logits": logits, "predictions": preds,
             "accuracy": (preds == batch["labels"]).float().mean()}

@@ -2,8 +2,9 @@
 ``train/partseg_trainer.py`` (the upstream ``part_seg/train.py`` and
 ``train_one_hot.py``).
 
-``train_part_segmentation(data_root, ..., device=)`` trains ``part_seg`` or
-``part_seg_msg_one_hot`` over ``PartNormalDataset`` ('trainval'), with Adam
+``train_part_segmentation(data_root, ..., device=)`` trains ``part_seg``,
+``part_seg_msg_one_hot`` or ``pointnet1_seg`` (fed xyz alone, with the T-Net
+orthogonality loss at 0.001) over ``PartNormalDataset`` ('trainval'), with Adam
 at the upstream learning-rate schedule and BN decay, evaluates the per-shape
 part IoU averaged per category on 'test' every epoch, keeps the best
 class-average-IoU checkpoint and logs to
@@ -40,7 +41,7 @@ from pointcloud_segmentation_attention_tpu_torch.utils.logging import MetricLogg
 
 def train_part_segmentation(
     data_root: str,
-    model_name: str = "part_seg",  # or 'part_seg_msg_one_hot'
+    model_name: str = "part_seg",  # or 'part_seg_msg_one_hot', 'pointnet1_seg'
     npoints: int = 2048,
     batch_size: int = 16,
     epochs: int = 201,
@@ -58,8 +59,9 @@ def train_part_segmentation(
     0.001 for ``pointnet1_seg`` (a T-Net model), else 0."""
     refuse_devices(n_devices)
     one_hot = model_name == "part_seg_msg_one_hot"
+    is_v1 = model_name == "pointnet1_seg"  # xyz alone; returns (logits, end_points)
     if reg_weight is None:
-        reg_weight = 0.001 if model_name == "pointnet1_seg" else 0.0
+        reg_weight = 0.001 if is_v1 else 0.0
     train_ds = PartNormalDataset(data_root, npoints, split="trainval", seed=seed)
     test_ds = PartNormalDataset(data_root, npoints, split="test", seed=seed)
     # The JAX trainer reads one batch to initialise its model; the same read
@@ -75,7 +77,7 @@ def train_part_segmentation(
     cats = sorted(test_ds.classes, key=lambda c: test_ds.classes[c])
 
     def make(pts, seg, cls):
-        batch = {"points": pts, "labels": seg}
+        batch = {"points": pts[..., :3] if is_v1 else pts, "labels": seg}
         if one_hot:
             batch["cls"] = cls
         return batch

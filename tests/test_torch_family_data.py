@@ -309,7 +309,8 @@ def test_part_segmentation_trainer_main_runs_on_cpu(shapenet_roots, tmp_path):
         tps_trainer.train_part_segmentation(root, n_devices=4, device="cpu")
 
 
-@pytest.mark.parametrize("fn", ["run_cls_convergence", "run_partseg_convergence"])
+@pytest.mark.parametrize("fn", ["run_cls_convergence", "run_partseg_convergence",
+                                "run_s3dis_convergence", "run_attention_net_convergence"])
 def test_recipe_defaults_match_jax(fn):
     want = inspect.signature(getattr(jrecipe, fn)).parameters
     got = inspect.signature(getattr(trecipe, fn)).parameters
@@ -328,10 +329,16 @@ def test_recipes_run_and_unported_arms_raise(tmp_path):
     # the corpus is cached behind its sentinel
     data = [d for d in os.listdir(tmp_path) if d.startswith("shapenet_synth")]
     assert len(data) == 1 and os.path.exists(tmp_path / data[0] / "DONE")
-    for fn in ("run_s3dis_convergence", "run_v1_scannet_convergence",
-               "run_attention_net_convergence", "run_extended"):
+    for fn in ("run_v1_scannet_convergence", "run_extended"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
             getattr(trecipe, fn)(str(tmp_path))
-    for argv in (["--extended"], ["--arms", "pointnet1_cls"]):
+    for argv in (["--extended"], ["--arms", "v1_scannet_whole"]):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
             trecipe.main(["--workdir", str(tmp_path), "--device", "cpu", *argv])
+    # The PointNet v1 arm runs: one epoch of the recipe's ModelNet (5 steps
+    # of B8 x 256) with its T-Net orthogonality loss live.
+    out = trecipe.main(["--workdir", str(tmp_path), "--device", "cpu", "--arms",
+                        "pointnet1_cls", "--epochs", "1", "--skip_attention"])
+    assert set(out) == {"pointnet1_cls"}
+    assert set(out["pointnet1_cls"]) == set(JAX_RESULTS["pointnet1_cls"])
+    assert out["pointnet1_cls"]["steps"] == 5 and out["pointnet1_cls"]["last_ortho_loss"] > 0

@@ -148,9 +148,12 @@ def test_bridge_round_trip_and_key_checks(tmp_path):
 
 
 def test_unported_names_and_poolings_raise():
-    for name in ("pointnet1_cls", "attention_net"):
-        with pytest.raises(KeyError, match="ROADMAP Queue 1 item 6"):
-            tmodels.get_model(name, device="cpu")
+    """Every name of the JAX registry builds (none is left unported); an
+    unknown name or pooling raises."""
+    assert tmodels.available_models() == jmodels.available_models()
+    for name in jmodels.available_models():
+        kw = {"layer_idx": 0} if name == "sem_seg_attention_single_layer" else {}
+        assert isinstance(tmodels.get_model(name, device="cpu", **kw), torch.nn.Module), name
     with pytest.raises(KeyError, match="unknown model"):
         tmodels.get_model("no_such_model", device="cpu")
     with pytest.raises(ValueError, match="unknown pooling"):

@@ -11,8 +11,11 @@ and the classification and part-segmentation families) and
 tiny step on the CPU through ``train.trainer.train`` (npz, pack store,
 resident corpus, and the sampler with ``remat='dots'``), from a synthetic
 store written and precomputed by the port itself, serves a room with a
-BN-folded model through ``ResidentSceneServer``, and trains ``cls_msg``
-and ``part_seg_msg_one_hot`` through the family recipes.
+BN-folded model through ``ResidentSceneServer``, trains ``cls_msg`` and
+``part_seg_msg_one_hot`` through the family recipes, ``attention_net``
+through ``train`` (npz and the resident corpus) and serves a room with it,
+and trains ``pointnet1_cls``, ``pointnet1_sem_seg`` (S3DIS) and the v1
+joint part segmenter through their trainers.
 """
 import fnmatch
 import os
@@ -50,7 +53,9 @@ for name in ("eval.resident_serving", "train.bn_fold", "train.device_replay",
              "train.device_sampler", "recipes.zero_precompute", "recipes.common",
              "native", "models.cls", "models.part_seg", "data.augment", "data.modelnet",
              "data.shapenet_part", "eval.part_iou", "eval.voting", "train.cls_steps",
-             "train.cls_trainer", "train.partseg_trainer", "recipes.family_convergence"):
+             "train.cls_trainer", "train.partseg_trainer", "recipes.family_convergence",
+             "models.attention_nets", "models.pointnet1", "data.s3dis",
+             "train.s3dis_trainer", "train.v1_partseg_trainer"):
     assert f"{port.__name__}.{name}" in modules, name
 
 import numpy as np
@@ -103,6 +108,37 @@ summary = family_convergence.run_partseg_convergence(
     d, "part_seg_msg_one_hot", n_shapes_per_cat=3, n_points=128, batch_size=2, epochs=1,
     device="cpu")
 assert summary["steps"] == 2, summary
+summary = family_convergence.run_cls_convergence(
+    d, "pointnet1_cls", num_classes=2, shapes_per_class=2, n_points=128, batch_size=2,
+    epochs=1, num_votes=1, device="cpu")
+# One step: the T-Nets start at the identity, so its orthogonality loss is 0.
+assert summary["steps"] == 1 and summary["last_ortho_loss"] == 0.0, summary
+summary = family_convergence.run_s3dis_convergence(
+    d, n_train_rooms=1, n_test_rooms=1, room_points=2000, num_point=64, batch_size=2,
+    epochs=1, device="cpu")
+assert summary["steps"] > 0, summary
+
+from pointcloud_segmentation_attention_tpu_torch.data.shapenet_part import (
+    write_synthetic_shapenet_part_h5,
+)
+from pointcloud_segmentation_attention_tpu_torch.train import v1_partseg_trainer
+
+lists = write_synthetic_shapenet_part_h5(os.path.join(d, "h5"), n_points=64)
+summary = v1_partseg_trainer.train_v1_part_segmentation(
+    *lists, npoints=64, batch_size=4, epochs=1, max_steps=2, log_dir=os.path.join(d, "v1"),
+    device="cpu")
+assert summary["steps"] == 2 and summary["last_ortho_loss"] > 0, summary
+
+# The full attention net (registry widths) through two input modes, then served.
+for tag, over in (("attnet_npz", {}), ("attnet_resident", {"input": "resident"})):
+    cfg = TrainConfig(data_root=root, precompute_dir=pre, log_dir=os.path.join(d, tag),
+                      model="attention_net", batch_size=2, n_points=64, epochs=1,
+                      n_epochs_to_val=1, **over)
+    summary = trainer.train(cfg, device="cpu")
+    assert summary["final_step"] == 1, summary
+attnet = models.seeded_model("attention_net", device="cpu", in_features=6)
+labels = ResidentSceneServer(attnet, 64, batch_size=2, device="cpu").predict_scene(room)
+assert labels.shape == (1500,), labels.shape
 loaded = sorted(m for m in sys.modules if refused(m))
 assert not loaded, loaded
 print("NO_JAX_OK", len(modules))
@@ -148,3 +184,4 @@ def test_package_data_ships_kernel_sources_headers_and_splits():
     assert scripts["psa-precompute-torch"] == pkg + ".data.scannet.precompute_cli:main"
     assert scripts["psa-train-cls-torch"] == pkg + ".train.cls_trainer:main"
     assert scripts["psa-train-partseg-torch"] == pkg + ".train.partseg_trainer:main"
+    assert scripts["psa-train-s3dis-torch"] == pkg + ".train.s3dis_trainer:main"

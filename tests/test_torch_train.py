@@ -395,19 +395,21 @@ def _jax_flat(jstate, adam) -> dict:
     return flat
 
 
-def _check_step(before, after, jm, grads, tstate, tm, lr, grad_rel):
+def _check_step(before, after, jm, grads, tstate, tm, lr, grad_rel, noise=None,
+                stats_tol=None, noise_rel=1e-5):
     """One step of the port from the JAX state ``before`` against the JAX
     step to ``after`` (flat keys; ``grads`` the JAX step's gradients).
 
-    Loss rtol 1e-5; BN statistics rtol = atol = 1e-5.  Gradients: per tensor
-    ``||g - g_jax|| <= grad_rel * ||g_jax||``; the noise biases below 1e-5
-    of the model's largest gradient on both sides.  New parameters: within
-    twice Adam's largest step of each other everywhere, and rtol 1e-5 /
-    atol 1e-6 wherever the two gradients agree to 1 % (there Adam's update
-    is determined)."""
+    Loss rtol 1e-5; BN statistics rtol = atol = 1e-5 (or ``stats_tol``
+    per key, for the keys it names).  Gradients: per tensor ``||g - g_jax||
+    <= grad_rel * ||g_jax||``; the noise biases (``noise``, else
+    ``_noise_biases``) below ``noise_rel`` (1e-5) of the model's largest
+    gradient on both sides.  New parameters: within twice Adam's largest step of each other
+    everywhere, and rtol 1e-5 / atol 1e-6 wherever the two gradients agree
+    to 1 % (there Adam's update is determined)."""
     np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=1e-5)
     model = tstate.model
-    noise = _noise_biases(model)
+    noise = _noise_biases(model) if noise is None else noise
     got = export_jax_state(tstate)
     g_want = {"params/" + k: np.asarray(v) for k, v in _flatten(grads).items()}
     g_max = max(np.abs(v).max() for v in g_want.values())
@@ -415,7 +417,7 @@ def _check_step(before, after, jm, grads, tstate, tm, lr, grad_rel):
         key = "params/" + name.replace(".", "/")
         g, g_got = g_want[key], p.grad.numpy()
         if name in noise:
-            assert max(np.abs(g_got).max(), np.abs(g).max()) < 1e-5 * g_max, key
+            assert max(np.abs(g_got).max(), np.abs(g).max()) < noise_rel * g_max, key
             firm = np.zeros(g.shape, bool)
         else:
             rel = np.linalg.norm(g_got - g) / np.linalg.norm(g)
@@ -426,7 +428,8 @@ def _check_step(before, after, jm, grads, tstate, tm, lr, grad_rel):
                                    err_msg=key)
     for name, _ in model.named_buffers():
         key = "batch_stats/" + name.replace(".", "/")
-        np.testing.assert_allclose(got[key], after[key], rtol=1e-5, atol=1e-5, err_msg=key)
+        tol = (stats_tol or {}).get(key, dict(rtol=1e-5, atol=1e-5))
+        np.testing.assert_allclose(got[key], after[key], err_msg=key, **tol)
 
 
 # Gradient tolerance (per-tensor relative L2).  A ReLU network's gradient
