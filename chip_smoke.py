@@ -62,7 +62,9 @@ Phases (each raises on failure; the script then exits non-zero):
                    packed run's byte for byte), and once with
                    ``input='sampler'`` (raw rooms on the card, no
                    precompute directory may appear; CUDA events around
-                   ``sample_chunk_batch`` give its share of the step):
+                   ``sample_chunk_batch`` give its share of the step), and
+                   once more with the sampler and ``compute_dtype=
+                   'bfloat16'``:
                    launch counters zeroed just
                    before and read just after each run, all seven kernels
                    launched,
@@ -119,6 +121,20 @@ Phases (each raises on failure; the script then exits non-zero):
    attention-net-serve -- ``ResidentSceneServer`` with ``attention_net`` over
                    150k-point rooms: launches in its window, ms a room; f32
                    labels >= 99.9 % equal to the host path's.
+   Mixed precision (``compute_dtype=torch.bfloat16``: bf16 products with
+   float32 results, float32 parameters):
+   mixed-precision-model -- the bf16 flagship's B16 x 8192 forward on the
+                   card against the CPU's bf16 forward of its first cloud:
+                   indices equal, logits within ``BF16_LOGIT_TOL``, argmax
+                   agreement >= ``BF16_ARGMAX``; then its forward time.
+   bf16-train-parity -- one bf16 B2 x 8192 step on the card (kernels and
+                   plain ops) and the CPU, held to the CPU's float32 step
+                   (``phase_bf16_train_parity``); all seven kernels launch.
+   mixed-precision-train -- 10 timed bf16 B16 x 8192 steps of the flagship
+                   and of ``pooling_attention_net`` beside their float32
+                   steps of phase 6 and attention-net-train: median step,
+                   peak memory, launches a step (device time after
+                   device-times).
    pointnet1    -- the five v1 models' B16 forward at the reference's sizes
                    against the CPU, and one ``pointnet1_cls`` step with the
                    orthogonality loss held by ``hold_step``.
@@ -126,6 +142,15 @@ Phases (each raises on failure; the script then exits non-zero):
                    ``pointnet1_cls`` and ``pointnet1_seg`` arms and
                    ``run_s3dis_convergence`` at the JAX results' sizes,
                    reported beside them.
+   v1-scannet   -- the PointNet++ v1 ScanNet pipeline (``phase_v1_scannet``):
+                   FPS and ball query of 1024 centres from 256 points against
+                   their plain versions; ``train_scannet_v1`` (``sem_seg``,
+                   B16 x 8192) for 3 steps of each ``dataset_kind`` with the
+                   whole-scene evaluation of two 150k-point rooms, launch
+                   counters zeroed just before and read just after each run
+                   (all seven kernels) and each step's launches; then
+                   ``run_v1_scannet_convergence`` at its defaults and at the
+                   vendored result's 40 epochs, beside it.
 7. kernels      -- every forward kernel against its plain PyTorch version on
                    the card at the B16 shapes (SA1-4, FP1-4) and at a large N;
                    all outputs equal bit for bit.  FPS, ball query,
@@ -161,8 +186,9 @@ Phases (each raises on failure; the script then exits non-zero):
                    and without dw, with its bound at every level; timed like
                    phase 7.
 9. device-times -- device-only time of every timed kernel level and library
-                   call, and of the B16 forwards (flagship unfolded and
-                   folded, attention), from the profiler's kernel
+                   call, of the B16 forwards (flagship unfolded, folded and
+                   bf16, attention) and of one float32 and one bf16 B16
+                   step of each mixed-precision model, from the profiler's kernel
                    events (``device_ms``); then the B16 forward is timed
                    again.  Last of the timed
                    phases: train steps timed after the profiler had run
@@ -171,7 +197,8 @@ Phases (each raises on failure; the script then exits non-zero):
                    inputs, which phase 9 reuses, do not count in the serve
                    and train windows' peak memory.
 10. report      -- one line per kernel (with its launches in the
-                   serve-resident window and in each trainer run), a
+                   serve-resident window, in each trainer run, in a bf16
+                   step and in a v1 ScanNet trainer step), a
                    ``{"kernels": [...]}`` JSON line, the
                    card's name and power limit, and the final
                    ``{"ok": true, "device": {...}}`` line.
@@ -1210,14 +1237,15 @@ def _capture_levels(model):
 
 
 def phase_model(dev, n: int, name: str = "sem_seg_features", tag: str = "model",
-                batch: int = 2, cpu_batch: Optional[int] = None,
-                **kwargs) -> torch.nn.Module:
+                batch: int = 2, cpu_batch: Optional[int] = None, tol: dict = LOGIT_TOL,
+                min_argmax: float = 0.0, **kwargs) -> torch.nn.Module:
     """Full-width registry model ``name`` (``kwargs`` to ``seeded_model``),
     B``batch`` x n eval forward on the card and on the CPU (on the first
     ``cpu_batch`` clouds, where given: an eval forward treats each cloud
-    alone): indices equal at every level, logits within LOGIT_TOL; the
-    card's peak memory.  Fed colors and normals where the model takes them,
-    else xyz only.  Returns the card's model."""
+    alone): indices equal at every level, logits within ``tol`` and at
+    least ``min_argmax`` of the argmax equal; the card's peak memory.  Fed
+    colors and normals where the model takes them, else xyz only.  Returns
+    the card's model."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cpu_model = models.seeded_model(name, seed=0, device="cpu", **kwargs)
@@ -1253,12 +1281,14 @@ def phase_model(dev, n: int, name: str = "sem_seg_features", tag: str = "model",
         check_equal(f"{tag} FP{i + 1} three_nn", di, plain.three_nn(xyzs[lvl], xyzs[lvl + 1])[1])
     if got.shape != (batch, n, 21) or not torch.isfinite(got).all():
         raise AssertionError(f"{tag} logits bad: shape {tuple(got.shape)}")
-    e = check_close(f"{tag} logits", got[:cb], want, LOGIT_TOL)
+    e = check_close(f"{tag} logits", got[:cb], want, tol)
     agree = float((got[:cb].argmax(-1) == want.argmax(-1)).float().mean())
+    if agree < min_argmax:
+        raise AssertionError(f"{tag}: argmax agreement {agree:.6f} < {min_argmax}")
     log(f"[{tag}] {name}{kwargs or ''} full width, B{batch} x {n}, "
         f"{'colors and normals' if feats is not None else 'xyz only'}"
         + (f" (the CPU on the first {cb} clouds)" if cb != batch else "")
-        + f": indices equal at SA1-4/FP1-4; logits max |card - cpu| = {e:.3e} (tol {LOGIT_TOL}); argmax agreement "
+        + f": indices equal at SA1-4/FP1-4; logits max |card - cpu| = {e:.3e} (tol {tol}); argmax agreement "
         f"{agree:.6f}; first forward card {t_dev:.2f} s (incl. warm-up), cpu {t_cpu:.2f} s; "
         f"max_memory_allocated {peak / 2**20:.1f} MiB")
     dev_model.smoke_report = dict(max_abs_err=e, argmax_agreement=agree, peak_bytes=peak,
@@ -2195,9 +2225,11 @@ def phase_trainer(dev, n_train: int = 32, n_val: int = 2, scene_points: int = 15
       and the val set, and the q16 pack store, all timed;
     - ``trainer.train`` (``sem_seg_features``, B16 x 8192, f32, TF32 off,
       validation every epoch) twice, ``input='npz'`` and
-      ``input='packed'`` with ``wire_format='packed_q16'`` (``_train_run``);
-      then both again for ``steady_epochs`` epochs without validation, the
-      rate once the prefetch queue has drained;
+      ``input='packed'`` with ``wire_format='packed_q16'`` (``_train_run``),
+      and ``input='resident'`` and ``'sampler'`` (``TRAINER_RUNS``), and the
+      sampler once more with ``compute_dtype='bfloat16'``; then the four
+      again for ``steady_epochs`` epochs without validation, the rate once
+      the prefetch queue has drained;
     - from the npz run's best checkpoint, ``generate_predictions`` over the
       val rooms as f32 arrays, packed f32 and packed q16 rows.  Packed-f32
       labels must equal the f32 path fed the values the record carries
@@ -2257,6 +2289,13 @@ def phase_trainer(dev, n_train: int = 32, n_val: int = 2, scene_points: int = 15
         for tag, over in TRAINER_RUNS:
             cfgs[tag] = run_config(over, log_dir=os.path.join(work, "logs_" + tag))
             runs[tag] = _train_run(dev, cfgs[tag], tag, steps)
+        # Mixed precision through the entry point: bf16 products, float32
+        # parameters; its best checkpoint restores into a bf16 template.
+        runs["sampler_bf16"] = _train_run(
+            dev, run_config(dict(input="sampler"), compute_dtype="bfloat16",
+                            log_dir=os.path.join(work, "logs_sampler_bf16")),
+            "sampler_bf16", steps)
+        runs["sampler_bf16"].pop("step_rows")
         # The resident run trains on the packed run's rows, step for step.
         packed_rows = _host_rows(runs["packed_q16"].pop("step_rows"))
         resident_rows = _host_rows(runs["resident"].pop("step_rows"))
@@ -2839,6 +2878,258 @@ def phase_attention_net_recipes(dev) -> dict:
     return out
 
 
+# ---- mixed precision (compute_dtype bfloat16) --------------------------------------
+
+BF16 = torch.bfloat16
+# A bf16 forward on the card against the same bf16 forward on the CPU: cuBLAS
+# sums the exact bf16 products in another order than the CPU's widened
+# float32 product, and where that moves a value across a bf16 rounding
+# boundary before a later product, the value changes by 2^-8 of itself; such
+# flips compound through the levels (the CPU tests measured 5.9e-4 between
+# JAX and the port through pointnet1_cls_basic's 1024-wide layers).
+BF16_LOGIT_TOL = dict(rtol=5e-2, atol=5e-2)
+BF16_ARGMAX = 0.99
+# The bf16 step is held as phase 5 holds the float32 one to float64: every
+# gradient tensor and BN statistic of the card's bf16 step (kernels, and plain
+# ops) at most twice as far (relative L2) from the CPU's float32 step as the
+# CPU's bf16 step is, or BF16_REL where that is larger.  The cotangents are
+# rounded to bf16 at every product (JAX's semantics), so a gradient that is a
+# sum cancelling to a small share of its terms (a BN scale or bias) is mostly
+# rounding noise: at B2 x 8192 the CPU's bf16 BN-scale gradients lie up to
+# 0.77 from its float32 ones, and the card's bf16 ones ~0.3 from the CPU's
+# (its forward differs by summation order, which moves the roundings).
+BF16_REL = 3e-2
+BF16_FACTOR = 2.0
+# The models timed in f32 and bf16 (registry arguments): the flagship, and
+# the pooling attention net, whose key and value projections are ~280 GFLOP
+# of products a B16 x 8192 forward.
+MIXED_MODELS = (("sem_seg_features", {}),
+                ("pooling_attention_net", {"in_features": ATTNET_FEATURES}))
+
+
+def phase_bf16_train_parity(dev, scenes, n: int, tag: str = "bf16-train-parity") -> dict:
+    """One full-width bf16 ``seg_train_step`` of ``sem_seg_features``, B2 x
+    n, dropout off, from the same seeded weights and batch on the card, on
+    the card through the plain ops and on the CPU, and the CPU's float32
+    step as the reference: indices equal at SA1-4 (the geometry stays
+    float32); loss within rtol 1e-3 of the CPU's and 1e-5 of the card's plain
+    ops; every BN statistic and every gradient tensor but the exactly-zero
+    biases, of the card with its kernels and with the plain ops, no farther
+    from the float32 step than ``BF16_FACTOR`` x the CPU's bf16 step is (or
+    ``BF16_REL``); the exactly-zero biases below 1e-3 x the largest
+    gradient.  All seven kernels launch in the card's step; parameters stay
+    float32."""
+    base = models.seeded_model("sem_seg_features", seed=0, device="cpu", dropout_rate=0.0,
+                               compute_dtype=BF16)
+    batch = _train_batch(scenes, np.random.RandomState(3), 2, n)
+    card, on_plain = copy.deepcopy(base).to(dev), copy.deepcopy(base).to(dev)
+    card_levels, h1 = _capture_levels(card)
+    cpu_levels, h2 = _capture_levels(base)
+    kernels.reset_launches()
+    loss_card, g_card, bn_card = _one_step(card, batch)
+    launches = kernels.launch_counts()
+    missing = [k for k in KERNEL_INFO if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{tag}: the card's step never launched {missing}")
+    t0 = time.perf_counter()
+    loss_cpu, g_cpu, bn_cpu = _one_step(base, batch)
+    t_cpu = time.perf_counter() - t0
+    for h in h1 + h2:
+        h.remove()
+    with plain_ops():
+        loss_plain, g_plain, bn_plain = _one_step(on_plain, batch)
+    f32 = models.seeded_model("sem_seg_features", seed=0, device="cpu", dropout_rate=0.0)
+    _, g_f32, bn_f32 = _one_step(f32, batch)
+    for i in range(4):
+        check_equal(f"{tag} SA{i + 1} centres", card_levels[i][0], cpu_levels[i][0])
+        check_equal(f"{tag} SA{i + 1} ball_query", card_levels[i][1], cpu_levels[i][1])
+    if not np.isfinite(loss_card):
+        raise AssertionError(f"{tag} loss not finite: {loss_card}")
+    np.testing.assert_allclose(loss_card, loss_cpu, rtol=1e-3, err_msg=f"{tag} loss")
+    np.testing.assert_allclose(loss_card, loss_plain, rtol=1e-5, err_msg=f"{tag} plain loss")
+    noise = _noise_biases(base)
+    held = {}
+    for what, cpu, ref, sides in (
+            ("gradient", g_cpu, g_f32, {"card": g_card, "card plain ops": g_plain}),
+            ("BN statistic", bn_cpu, bn_f32, {"card": bn_card, "card plain ops": bn_plain})):
+        for k in (k for k in cpu if k not in noise):
+            d_cpu = _rel_l2(cpu[k].double(), ref[k].double())
+            limit = max(BF16_FACTOR * d_cpu, BF16_REL)
+            for side, got in sides.items():
+                d = _rel_l2(got[k].double(), ref[k].double())
+                if d > limit:
+                    raise AssertionError(f"{tag}: {side} {what} {k} lies {d:.3e} from the "
+                                         f"float32 step (rel L2), the CPU's bf16 {d_cpu:.3e}")
+                held[(what, side, k)] = (d, d_cpu, d / limit)
+    g_max = max(float(g_cpu[k].abs().max()) for k in g_cpu if k not in noise)
+    noise_max = max(max(float(g_card[k].abs().max()), float(g_cpu[k].abs().max()))
+                    for k in noise) / g_max
+    if noise_max >= 1e-3:
+        raise AssertionError(f"{tag}: an exactly-zero gradient is {noise_max:.3e} of the "
+                             f"largest")
+    if any(p.dtype != torch.float32 for p in card.parameters()):
+        raise AssertionError(f"{tag}: a parameter is not float32")
+    grads = [v for (what, side, _), v in held.items() if what == "gradient" and side == "card"]
+    res = dict(loss_card=loss_card, loss_cpu=loss_cpu, loss_card_plain=loss_plain,
+               grad_rel_l2_card_vs_f32_max=max(v[0] for v in grads),
+               grad_rel_l2_cpu_bf16_vs_f32_max=max(v[1] for v in grads),
+               grad_rel_l2_card_vs_cpu_max=max(_rel_l2(g_card[k], g_cpu[k])
+                                               for k in g_cpu if k not in noise),
+               grad_rel_l2_kernels_vs_plain_max=max(_rel_l2(g_card[k], g_plain[k])
+                                                    for k in g_cpu if k not in noise),
+               worst_share_of_limit=max(v[2] for v in held.values()),
+               exact_zero_max_share=noise_max, step_cpu_s=t_cpu, launches=launches)
+    log(f"[{tag}] sem_seg_features bf16 full width B2 x {n}, colors and normals, dropout "
+        f"off: indices equal at SA1-4; loss card {loss_card:.7f} cpu {loss_cpu:.7f} "
+        f"card-plain {loss_plain:.7f}; gradients rel L2 from the CPU's float32 step: card max "
+        f"{res['grad_rel_l2_card_vs_f32_max']:.3e}, the CPU's bf16 max "
+        f"{res['grad_rel_l2_cpu_bf16_vs_f32_max']:.3e}; card vs cpu max "
+        f"{res['grad_rel_l2_card_vs_cpu_max']:.3e}, kernels vs plain ops max "
+        f"{res['grad_rel_l2_kernels_vs_plain_max']:.3e}; gradients and BN statistics at most "
+        f"{res['worst_share_of_limit']:.3f} of their limits ({BF16_FACTOR} x the CPU's bf16 "
+        f"distance, or {BF16_REL}); exactly-zero biases <= {noise_max:.3e} of the largest "
+        f"gradient; cpu step {t_cpu:.2f} s; launches in the card's step "
+        f"{json.dumps(launches)}")
+    return res
+
+
+def train_step_device_ms(dev, batch: dict, name: str, **kwargs) -> float:
+    """Device-only time of one B16 training step of registry model ``name``
+    (``device_ms`` over 3 steps on one batch, after 2)."""
+    model = models.seeded_model(name, seed=0, device=dev, **kwargs)
+    state = TrainState(model)
+    batch = _for_model(batch, model)
+    ms = device_ms(lambda: seg_train_step(state, batch), calls=3)
+    del state, model
+    torch.cuda.empty_cache()
+    return ms
+
+
+# ---- the PointNet++ v1 ScanNet pipeline ---------------------------------------------
+
+V1_KINDS = ("chunk", "whole", "virtual")
+# RESULTS_family_convergence.json["v1_scannet_whole"] of the JAX package: a
+# run of 40 epochs (docs/artifacts/tpu_batch_r5b.py, run_extended(epochs=40)
+# when it passed its epochs on), 1480 steps.  At its defaults (8 epochs) the
+# JAX package's run_v1_scannet_convergence makes 296 steps (151 whole-scene
+# chunks of the six rooms, B4), as the port's does.
+V1_SCANNET_JAX = dict(eval_miou=0.14839952136124135, eval_calibrated_vox_accuracy=0.8333814229935232,
+                      eval_accuracy=0.5618842979088144, steps=1480, epochs=40)
+V1_DEFAULT_STEPS = 296
+
+
+@contextlib.contextmanager
+def counted_steps(module, counts: dict):
+    """Count the kernel launches of every ``seg_train_step`` that ``module``
+    calls into ``counts`` (with the number of steps under ``'steps'``);
+    evaluation launches in between are not counted."""
+    real = module.seg_train_step
+
+    def step(*args, **kwargs):
+        before = kernels.launch_counts()
+        out = real(*args, **kwargs)
+        for k, v in kernels.launch_counts().items():
+            counts[k] = counts.get(k, 0) + v - before[k]
+        counts["steps"] = counts.get("steps", 0) + 1
+        return out
+
+    module.seg_train_step = step
+    try:
+        yield
+    finally:
+        module.seg_train_step = real
+
+
+def phase_v1_scannet(dev, n_train: int = 16, scene_points: int = 150_000, batch: int = 16,
+                     npoints: int = 8192, steps: int = 3) -> dict:
+    """The v1 ScanNet pipeline on the card.  First ``sem_seg``'s smallest
+    input of the JAX tests (FPS of 1024 centres from 256 points, ball query
+    around them): indices equal to the plain versions.  Then
+    ``train_scannet_v1`` at full size (``sem_seg``, B16 x 8192) for
+    ``steps`` steps of each ``dataset_kind`` on ``n_train`` geometry-coded
+    rooms of ``scene_points``, each run evaluating two such val rooms whole:
+    launch counters zeroed just before each run and read just after (all
+    seven kernels), and each step's own launches; finite metrics.  Then
+    ``run_v1_scannet_convergence`` at its defaults and at the vendored
+    result's 40 epochs, beside the JAX package's vendored result (reported,
+    not held: the random streams differ; the step counts must be JAX's)."""
+    from pointcloud_segmentation_attention_tpu_torch.recipes.family_convergence import (
+        run_v1_scannet_convergence,
+    )
+    from pointcloud_segmentation_attention_tpu_torch.train import v1_scannet_trainer
+
+    rng = np.random.RandomState(12)
+    small = torch.from_numpy(rng.rand(2, 256, 3).astype(np.float32))
+    idx = ops.farthest_point_sample(small.to(dev), 1024)
+    check_equal("v1 fps 1024 of 256", idx, plain.farthest_point_sample(small, 1024))
+    centres = plain.gather_point(small, idx.cpu())
+    for got, want in zip(ops.ball_query(small.to(dev), centres.to(dev), 0.1, 32),
+                         plain.ball_query(small, centres, 0.1, 32)):
+        check_equal("v1 ball_query around 1024 of 256", got, want)
+    work = tempfile.mkdtemp(prefix=".recipe_smoke_", dir=ROOT)
+    out = {"runs": {}}
+    try:
+        root = os.path.join(work, "scannet")
+        t0 = time.perf_counter()
+        splits = write_synthetic_dataset(root, n_train=n_train, n_val=2, n_points=scene_points,
+                                         seed=300, color_coded=True, geometry_coded=True)
+        t_store = time.perf_counter() - t0
+        for kind in V1_KINDS:
+            counts: dict = {}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            with counted_steps(v1_scannet_trainer, counts):
+                summary = v1_scannet_trainer.train_scannet_v1(
+                    root, splits["train"], splits["val"], npoints=npoints, batch_size=batch,
+                    epochs=steps, log_dir=os.path.join(work, "v1_" + kind), max_steps=steps,
+                    dataset_kind=kind, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernels.launch_counts()
+            missing = [k for k in KERNEL_INFO if launches[k] == 0]
+            if missing:
+                raise AssertionError(f"v1-scannet {kind}: never launched {missing}")
+            metrics = [summary[k] for k in ("train_loss", "eval_accuracy", "eval_miou",
+                                            "eval_calibrated_vox_accuracy")]
+            if summary["steps"] != steps or not np.all(np.isfinite(metrics)):
+                raise AssertionError(f"v1-scannet {kind}: {summary}")
+            per_step = {k: counts[k] / counts["steps"] for k in KERNEL_INFO}
+            out["runs"][kind] = dict(summary, wall_s=wall, launches=launches,
+                                     launches_per_step=per_step,
+                                     peak_bytes=torch.cuda.max_memory_allocated())
+            log(f"[v1-scannet] {kind}: {steps} steps of sem_seg B{batch} x {npoints}, each "
+                f"epoch's whole-scene evaluation of 2 rooms of {scene_points} points, in "
+                f"{wall:.2f} s; train loss "
+                f"{summary['train_loss']:.4f}, point accuracy {summary['eval_accuracy']:.4f}, "
+                f"mIoU {summary['eval_miou']:.4f}, calibrated voxel accuracy "
+                f"{summary['eval_calibrated_vox_accuracy']:.4f}; launches a step "
+                f"{json.dumps(per_step)}; in the window {json.dumps(launches)}")
+        out["store_s"] = t_store
+        for tag, epochs, want in (("recipe", None, V1_DEFAULT_STEPS),
+                                  ("recipe_40_epochs", V1_SCANNET_JAX["epochs"],
+                                   V1_SCANNET_JAX["steps"])):
+            kw = {} if epochs is None else {"epochs": epochs}
+            t0 = time.perf_counter()
+            recipe = run_v1_scannet_convergence(os.path.join(work, tag), device=dev, **kw)
+            wall = time.perf_counter() - t0
+            if recipe["steps"] != want or not np.isfinite(recipe["eval_miou"]):
+                raise AssertionError(f"v1-scannet {tag}: {recipe}")
+            out[tag] = dict(recipe, wall_s=wall, jax=V1_SCANNET_JAX)
+            log(f"[v1-scannet] run_v1_scannet_convergence, 6 + 2 rooms of 20k points, "
+                f"whole-scene chunks, B4 x 2048, {epochs or 'its default 8'} epochs, in "
+                f"{wall:.1f} s: "
+                + ", ".join(f"{k} {recipe[k]:.4f} (JAX vendored {V1_SCANNET_JAX[k]:.4f})"
+                            for k in ("eval_miou", "eval_calibrated_vox_accuracy",
+                                      "eval_accuracy"))
+                + f", {recipe['steps']} steps (JAX vendored {V1_SCANNET_JAX['steps']}), final "
+                f"train loss {recipe['train_loss']:.4f}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script drives the GPU port",
@@ -2912,6 +3203,24 @@ def main() -> int:
                     for name in ATTENTION_NETS[::2]}
     attnet_serve = phase("attention-net-serve", phase_attention_net_serve, attnet, dev,
                          scene_points=150_000, n_scenes=3, npoints=8192, batch=16)
+
+    # Mixed precision (bf16 products, float32 parameters): the flagship's
+    # B16 forward against the CPU, its step against the CPU, and 10 timed
+    # steps of the flagship and the pooling attention net beside their f32
+    # steps above.
+    bf16_model = phase("mixed-precision-model", phase_model, dev, n=8192,
+                       tag="mixed-precision-model", batch=16, cpu_batch=1, tol=BF16_LOGIT_TOL,
+                       min_argmax=BF16_ARGMAX, compute_dtype=BF16)
+    bf16_fwd = phase("mixed-precision-forward", phase_forward_time, bf16_model, dev, batch=16,
+                     n=8192, reps=10, tag="mixed-precision-forward")
+    bf16_parity = phase("bf16-train-parity", phase_bf16_train_parity, dev, rooms, n=8192)
+    bf16_train = {name: phase(f"mixed-precision-train {name}", phase_train, dev, batches,
+                              steps=10, warmup=3, name=name,
+                              tag=f"mixed-precision-train {name}", compute_dtype=BF16, **kw)
+                  for name, kw in MIXED_MODELS}
+    f32_train = {"sem_seg_features": train,
+                 "pooling_attention_net": attnet_train["pooling_attention_net"]}
+    step_batch = batches[0]
     del rooms, batches, attnet
 
     # The PointNet++ classification and part-segmentation families at full width.
@@ -2921,6 +3230,7 @@ def main() -> int:
     fam_recipe = phase("family-recipe", phase_family_recipe, dev)
     v1 = phase("pointnet1", phase_pointnet1, dev, batch=16)
     attnet_recipe = phase("attention-net-recipe", phase_attention_net_recipes, dev)
+    v1_scannet = phase("v1-scannet", phase_v1_scannet, dev)
     rep, geom = phase("kernels", phase_kernels, dev, batch=16, n=8192, reps=20)
     rep.update(phase("kernels-bwd", phase_kernels_bwd, dev, geom, reps=20))
     del geom
@@ -2938,6 +3248,25 @@ def main() -> int:
     folded_device_ms = phase_forward_device(folded, dev, batch=16, n=8192,
                                             what="eval forward, BN folded")
     attn_fwd_device_ms = phase_forward_device(attn_model, dev, batch=16, n=8192)
+    bf16_fwd_device_ms = phase_forward_device(bf16_model, dev, batch=16, n=8192,
+                                              what="eval forward, bf16")
+    mixed = {}
+    for name, kw in MIXED_MODELS:
+        for dtype, timed in (("float32", f32_train[name]), ("bfloat16", bf16_train[name])):
+            extra = {"compute_dtype": BF16} if dtype == "bfloat16" else {}
+            mixed[f"{name} {dtype}"] = dict(
+                step_ms_median=timed["step_ms_median"], peak_bytes=timed["peak_bytes"],
+                points_per_s=timed["points_per_s"], steps=timed["steps"],
+                step_device_ms=train_step_device_ms(dev, step_batch, name, **kw, **extra),
+                launches_per_step=timed["launches_per_step"])
+            r = mixed[f"{name} {dtype}"]
+            log(f"[mixed-precision] {name} {dtype} B16 x 8192 train step: median "
+                f"{r['step_ms_median']:.3f} ms of {r['steps']} (CUDA events), "
+                f"{r['step_device_ms']:.3f} ms device (profiler), max_memory_allocated "
+                f"{r['peak_bytes'] / 2**20:.1f} MiB")
+    log(f"[mixed-precision] B16 x 8192 eval forward sem_seg_features: f32 {fwd['ms']:.3f} ms "
+        f"wall / {fwd_device_ms:.3f} ms device, bf16 {bf16_fwd['ms']:.3f} / "
+        f"{bf16_fwd_device_ms:.3f}")
     fwd_after = phase_forward_time(model, dev, batch=16, n=8192, reps=10,
                                    tag="forward after the profiler")
 
@@ -2959,6 +3288,10 @@ def main() -> int:
             f"{m}={v['launches_per_step'][name]:g}" for m, v in fam_train.items())
         trainer_launches += "; attention-net train step: " + " ".join(
             f"{m}={v['launches_per_step'][name]:g}" for m, v in attnet_train.items())
+        trainer_launches += "; bf16 train step: " + " ".join(
+            f"{m}={v['launches_per_step'][name]:g}" for m, v in bf16_train.items())
+        trainer_launches += "; v1 ScanNet train step: " + " ".join(
+            f"{k}={v['launches_per_step'][name]:g}" for k, v in v1_scannet["runs"].items())
         log(f"[report] {name:21s} launches={launches:4d} (serve-resident window: "
             f"{resident['launches'][name]}; trainer window: {trainer_launches}) "
             f"{r['shape']}: "
@@ -2980,6 +3313,13 @@ def main() -> int:
             "attention_net_train_launches_per_step": {m: v["launches_per_step"][name]
                                                       for m, v in attnet_train.items()},
             "attention_net_serve_launches": attnet_serve["launches"][name],
+            "bf16_train_launches_per_step": {m: v["launches_per_step"][name]
+                                             for m, v in bf16_train.items()},
+            "bf16_train_parity_launches": bf16_parity["launches"][name],
+            "v1_scannet_train_launches_per_step": {k: v["launches_per_step"][name]
+                                                   for k, v in v1_scannet["runs"].items()},
+            "v1_scannet_launches": {k: v["launches"][name]
+                                    for k, v in v1_scannet["runs"].items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "library_device_ms": r["library_device_ms"],
@@ -3025,6 +3365,13 @@ def main() -> int:
                                       "train": attnet_train, "serve": attnet_serve,
                                       "recipe": attnet_recipe},
                    "pointnet1": v1,
+                   "mixed_precision": {"model": bf16_model.smoke_report,
+                                       "forward_b16_ms": bf16_fwd["ms"],
+                                       "forward_b16_peak_bytes": bf16_fwd["peak_bytes"],
+                                       "forward_b16_device_ms": bf16_fwd_device_ms,
+                                       "train_parity": bf16_parity, "train_steps": mixed,
+                                       "train": bf16_train},
+                   "v1_scannet": v1_scannet,
                    "phase_seconds": phase_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

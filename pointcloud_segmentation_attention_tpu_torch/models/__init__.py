@@ -73,8 +73,9 @@ def get_model(name: str, *, device="cuda", generator: Optional[torch.Generator] 
     ``ClsMSG`` and the attention nets take ``num_classes``, ``in_features``
     and ``dropout_rate``; the part segmenters ``num_classes`` and
     ``dropout_rate``; the PointNet v1 models their classes' arguments);
-    ``sem_seg_attention_single_layer`` also takes ``layer_idx``.  An
-    unknown name raises ``KeyError``."""
+    ``sem_seg_attention_single_layer`` also takes ``layer_idx``.  Every
+    name takes ``compute_dtype`` (``torch.bfloat16`` for bf16 products with
+    float32 parameters and results).  An unknown name raises ``KeyError``."""
     if name not in available_models():
         raise KeyError(f"unknown model '{name}'; available: {available_models()}")
     if name in _V1:

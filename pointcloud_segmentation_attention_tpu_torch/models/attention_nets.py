@@ -19,7 +19,9 @@ attention layers have no BatchNorm, so ``bn_momentum`` reaches the FP head
 (and the pooling net's SA MLPs) only.  Module names are the Flax names
 (``l1.inner0.attention.query_net``, ``l1.attention_pool.value_net``,
 ``head.fp1.mlp.conv0.bn``, ``head.fc1``), so a JAX ``model.init`` loads
-through ``load_jax_variables`` with no missing or extra key.
+through ``load_jax_variables`` with no missing or extra key.  Every model
+and layer takes ``compute_dtype``, the dtype of its projections and
+attention products (float32 results).
 """
 from __future__ import annotations
 
@@ -54,8 +56,9 @@ class AttentionNetLayer(nn.Module):
 
     def __init__(self, npoint: int, out_dim: int, inner_dimensions: Sequence[int], c_in: int,
                  radius: float = 0.1, nsample: int = 32, inner_kind: str = "attention",
-                 num_heads: int = NUM_HEADS):
+                 num_heads: int = NUM_HEADS, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        dd = compute_dtype
         if inner_kind not in ("attention", "mlp"):
             raise ValueError(f"inner_kind must be 'attention' or 'mlp', got {inner_kind!r}")
         self.npoint, self.radius, self.nsample = npoint, radius, nsample
@@ -63,12 +66,12 @@ class AttentionNetLayer(nn.Module):
         self.n_inner = len(inner_dimensions)
         c = 3 + c_in
         for i, dim in enumerate(inner_dimensions):
-            block = (InnerAttentionBlock(c, dim, key_dim=out_dim) if inner_kind == "attention"
-                     else FeedForward(c, dim, dim))
+            block = (InnerAttentionBlock(c, dim, key_dim=out_dim, compute_dtype=dd)
+                     if inner_kind == "attention" else FeedForward(c, dim, dim, compute_dtype=dd))
             self.add_module(f"inner{i}", block)
             c = dim
         self.attention_pool = AttentionPool(c, c, output_dim=out_dim, key_dim=out_dim,
-                                            num_heads=num_heads)
+                                            num_heads=num_heads, compute_dtype=dd)
         self.out_channels = num_heads * out_dim
 
     def forward(self, xyz: torch.Tensor, points: Optional[torch.Tensor],
@@ -88,12 +91,14 @@ class PoolingAttentionNetLayer(nn.Module):
     xyz.  Returns (new_xyz, (B, npoint, 16 * out_dim), idx)."""
 
     def __init__(self, npoint: int, out_dim: int, mlp: Sequence[int], c_in: int,
-                 radius: float = 0.1, nsample: int = 32, num_heads: int = NUM_HEADS):
+                 radius: float = 0.1, nsample: int = 32, num_heads: int = NUM_HEADS,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.npoint, self.radius, self.nsample = npoint, radius, nsample
-        self.mlp = SharedMLP(3 + c_in, mlp)
+        self.mlp = SharedMLP(3 + c_in, mlp, compute_dtype)
         self.attention_pool = AttentionPool(self.mlp.out_channels, 3, output_dim=out_dim,
-                                            key_dim=out_dim, num_heads=num_heads)
+                                            key_dim=out_dim, num_heads=num_heads,
+                                            compute_dtype=compute_dtype)
         self.out_channels = num_heads * out_dim
 
     def forward(self, xyz: torch.Tensor, points: Optional[torch.Tensor],
@@ -108,16 +113,18 @@ class _FPHead(nn.Module):
     """The FP pyramid and seg head every AttentionNet shares: ``widths``
     are the feature widths of the input and the four levels."""
 
-    def __init__(self, widths: Sequence[int], num_classes: int, dropout_rate: float):
+    def __init__(self, widths: Sequence[int], num_classes: int, dropout_rate: float,
+                 compute_dtype: torch.dtype):
         super().__init__()
+        dd = compute_dtype
         up = widths[4]
         for i in range(4):
-            fp = FeaturePropagation(up + widths[3 - i], FP_MLPS[i])
+            fp = FeaturePropagation(up + widths[3 - i], FP_MLPS[i], dd)
             self.add_module(f"fp{i + 1}", fp)
             up = fp.out_channels
-        self.fc1 = PointConv(up, 128, bn=True)
+        self.fc1 = PointConv(up, 128, bn=True, compute_dtype=dd)
         self.dp1 = Dropout(dropout_rate)
-        self.fc2 = PointConv(128, num_classes, bn=False, activation=False)
+        self.fc2 = PointConv(128, num_classes, bn=False, activation=False, compute_dtype=dd)
 
     def forward(self, xyzs, feats, bn_momentum: float,
                 generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -161,16 +168,17 @@ class AttentionNetModel(_AttentionNetBase):
     OUT_DIMS = (8, 16, 32, 64)
 
     def __init__(self, num_classes: int = 21, in_features: int = 0,
-                 inner_kind: str = "attention", dropout_rate: float = 0.5):
+                 inner_kind: str = "attention", dropout_rate: float = 0.5,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.in_features = in_features
         widths = [in_features]
         for i, out_dim in enumerate(self.OUT_DIMS):
             layer = AttentionNetLayer(NPOINTS[i], out_dim, [out_dim], widths[-1],
-                                      inner_kind=inner_kind)
+                                      inner_kind=inner_kind, compute_dtype=compute_dtype)
             self.add_module(f"l{i + 1}", layer)
             widths.append(layer.out_channels)
-        self.head = _FPHead(widths, num_classes, dropout_rate)
+        self.head = _FPHead(widths, num_classes, dropout_rate, compute_dtype)
 
     def _level(self, i, xyz, points, bn_momentum, generator):
         return getattr(self, f"l{i + 1}")(xyz, points, generator=generator)
@@ -184,15 +192,16 @@ class PoolingAttentionNetModel(_AttentionNetBase):
     OUT_DIMS = (64, 128, 256, 512)
 
     def __init__(self, num_classes: int = 21, in_features: int = 0,
-                 dropout_rate: float = 0.5):
+                 dropout_rate: float = 0.5, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.in_features = in_features
         widths = [in_features]
         for i, out_dim in enumerate(self.OUT_DIMS):
-            layer = PoolingAttentionNetLayer(NPOINTS[i], out_dim, self.MLPS[i], widths[-1])
+            layer = PoolingAttentionNetLayer(NPOINTS[i], out_dim, self.MLPS[i], widths[-1],
+                                             compute_dtype=compute_dtype)
             self.add_module(f"l{i + 1}", layer)
             widths.append(layer.out_channels)
-        self.head = _FPHead(widths, num_classes, dropout_rate)
+        self.head = _FPHead(widths, num_classes, dropout_rate, compute_dtype)
 
     def _level(self, i, xyz, points, bn_momentum, generator):
         return getattr(self, f"l{i + 1}")(xyz, points, bn_momentum=bn_momentum)

@@ -12,7 +12,8 @@ Both take ``(xyz (B,N,3), features (B,N,in_features) | None)``; the head is
 FC 512 -> dropout -> FC 256 -> dropout -> FC classes on (B, 1024), its BNs
 over the batch axis.  Module names follow the Flax names (sa1..sa3,
 ``branch{i}``, head/fc1..fc3), so checkpoints of the JAX package map onto
-the state dict by name.
+the state dict by name.  Every model takes ``compute_dtype``, the
+products' dtype (``torch.bfloat16`` for mixed precision).
 """
 from __future__ import annotations
 
@@ -34,13 +35,15 @@ GLOBAL_MLP = (256, 512, 1024)
 class ClsHead(nn.Module):
     """FC 512 -> dropout -> FC 256 -> dropout -> FC num_classes."""
 
-    def __init__(self, c_in: int, num_classes: int, dropout_rate: float):
+    def __init__(self, c_in: int, num_classes: int, dropout_rate: float,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.fc1 = PointConv(c_in, 512)
+        dd = compute_dtype
+        self.fc1 = PointConv(c_in, 512, compute_dtype=dd)
         self.dp1 = Dropout(dropout_rate)
-        self.fc2 = PointConv(512, 256)
+        self.fc2 = PointConv(512, 256, compute_dtype=dd)
         self.dp2 = Dropout(dropout_rate)
-        self.fc3 = PointConv(256, num_classes, bn=False, activation=False)
+        self.fc3 = PointConv(256, num_classes, bn=False, activation=False, compute_dtype=dd)
 
     def forward(self, x: torch.Tensor, bn_momentum: float = 0.9,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -54,13 +57,13 @@ class _Classifier(nn.Module):
     ``sa3`` and the head."""
 
     def __init__(self, sa1: nn.Module, sa2: nn.Module, in_features: int, num_classes: int,
-                 dropout_rate: float):
+                 dropout_rate: float, compute_dtype: torch.dtype):
         super().__init__()
         self.in_features = in_features
         self.sa1, self.sa2 = sa1, sa2
         self.sa3 = SetAbstraction(None, None, None, sa2.out_channels, GLOBAL_MLP,
-                                  group_all=True)
-        self.head = ClsHead(self.sa3.out_channels, num_classes, dropout_rate)
+                                  group_all=True, compute_dtype=compute_dtype)
+        self.head = ClsHead(self.sa3.out_channels, num_classes, dropout_rate, compute_dtype)
 
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor] = None,
                 bn_momentum: float = 0.9,
@@ -82,17 +85,21 @@ class _Classifier(nn.Module):
 
 class ClsSSG(_Classifier):
     def __init__(self, num_classes: int = 40, in_features: int = 0,
-                 dropout_rate: float = 0.5):
-        sa1 = SetAbstraction(512, 0.2, 32, in_features, (64, 64, 128))
-        sa2 = SetAbstraction(128, 0.4, 64, sa1.out_channels, (128, 128, 256))
-        super().__init__(sa1, sa2, in_features, num_classes, dropout_rate)
+                 dropout_rate: float = 0.5, compute_dtype: torch.dtype = torch.float32):
+        dd = compute_dtype
+        sa1 = SetAbstraction(512, 0.2, 32, in_features, (64, 64, 128), compute_dtype=dd)
+        sa2 = SetAbstraction(128, 0.4, 64, sa1.out_channels, (128, 128, 256),
+                             compute_dtype=dd)
+        super().__init__(sa1, sa2, in_features, num_classes, dropout_rate, dd)
 
 
 class ClsMSG(_Classifier):
     def __init__(self, num_classes: int = 40, in_features: int = 0,
-                 dropout_rate: float = 0.4):
+                 dropout_rate: float = 0.4, compute_dtype: torch.dtype = torch.float32):
+        dd = compute_dtype
         sa1 = SetAbstractionMSG(512, (0.1, 0.2, 0.4), (16, 32, 128), in_features,
-                                ((32, 32, 64), (64, 64, 128), (64, 96, 128)))
+                                ((32, 32, 64), (64, 64, 128), (64, 96, 128)), compute_dtype=dd)
         sa2 = SetAbstractionMSG(128, (0.2, 0.4, 0.8), (32, 64, 128), sa1.out_channels,
-                                ((64, 64, 128), (128, 128, 256), (128, 128, 256)))
-        super().__init__(sa1, sa2, in_features, num_classes, dropout_rate)
+                                ((64, 64, 128), (128, 128, 256), (128, 128, 256)),
+                                compute_dtype=dd)
+        super().__init__(sa1, sa2, in_features, num_classes, dropout_rate, dd)

@@ -12,7 +12,8 @@ categories): the counterparts of the JAX package's ``models/part_seg.py``.
 
 FP1 interpolates from the group-all level's single centroid at the origin
 (three-NN pads slots 2-3 with float32 max and index 0).  The head is FC 128
--> dropout 0.5 -> FC classes.  Module names follow the Flax names.
+-> dropout 0.5 -> FC classes.  Module names follow the Flax names.  Both
+models take ``compute_dtype``, the products' dtype.
 """
 from __future__ import annotations
 
@@ -38,11 +39,13 @@ POINT_CHANNELS = 6  # xyz + normals
 class SegHead(nn.Module):
     """FC 128 -> dropout -> FC num_classes, per point."""
 
-    def __init__(self, c_in: int, num_classes: int, dropout_rate: float):
+    def __init__(self, c_in: int, num_classes: int, dropout_rate: float,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.fc1 = PointConv(c_in, 128)
+        self.fc1 = PointConv(c_in, 128, compute_dtype=compute_dtype)
         self.dp1 = Dropout(dropout_rate)
-        self.fc2 = PointConv(128, num_classes, bn=False, activation=False)
+        self.fc2 = PointConv(128, num_classes, bn=False, activation=False,
+                             compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor, bn_momentum: float = 0.9,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -55,15 +58,16 @@ class _PartSegmenter(nn.Module):
     the head."""
 
     def __init__(self, sa1: nn.Module, sa2: nn.Module, fp3_mlp, skip_channels: int,
-                 num_classes: int, dropout_rate: float):
+                 num_classes: int, dropout_rate: float, compute_dtype: torch.dtype):
         super().__init__()
+        dd = compute_dtype
         self.sa1, self.sa2 = sa1, sa2
         self.sa3 = SetAbstraction(None, None, None, sa2.out_channels, GLOBAL_MLP,
-                                  group_all=True)
-        self.fp1 = FeaturePropagation(self.sa3.out_channels + sa2.out_channels, (256, 256))
-        self.fp2 = FeaturePropagation(self.fp1.out_channels + sa1.out_channels, (256, 128))
-        self.fp3 = FeaturePropagation(self.fp2.out_channels + skip_channels, fp3_mlp)
-        self.head = SegHead(self.fp3.out_channels, num_classes, dropout_rate)
+                                  group_all=True, compute_dtype=dd)
+        self.fp1 = FeaturePropagation(self.sa3.out_channels + sa2.out_channels, (256, 256), dd)
+        self.fp2 = FeaturePropagation(self.fp1.out_channels + sa1.out_channels, (256, 128), dd)
+        self.fp3 = FeaturePropagation(self.fp2.out_channels + skip_channels, fp3_mlp, dd)
+        self.head = SegHead(self.fp3.out_channels, num_classes, dropout_rate, dd)
 
     def _run(self, point_cloud: torch.Tensor, skip_front: Optional[torch.Tensor],
              bn_momentum: float, generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -85,11 +89,13 @@ class _PartSegmenter(nn.Module):
 
 
 class PartSegSSG(_PartSegmenter):
-    def __init__(self, num_classes: int = NUM_PART_CLASSES, dropout_rate: float = 0.5):
-        sa1 = SetAbstraction(512, 0.2, 64, 3, (64, 64, 128))
-        sa2 = SetAbstraction(128, 0.4, 64, sa1.out_channels, (128, 128, 256))
+    def __init__(self, num_classes: int = NUM_PART_CLASSES, dropout_rate: float = 0.5,
+                 compute_dtype: torch.dtype = torch.float32):
+        dd = compute_dtype
+        sa1 = SetAbstraction(512, 0.2, 64, 3, (64, 64, 128), compute_dtype=dd)
+        sa2 = SetAbstraction(128, 0.4, 64, sa1.out_channels, (128, 128, 256), compute_dtype=dd)
         super().__init__(sa1, sa2, (128, 128, 128), POINT_CHANNELS, num_classes,
-                         dropout_rate)
+                         dropout_rate, dd)
 
     def forward(self, point_cloud: torch.Tensor, bn_momentum: float = 0.9,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -98,13 +104,15 @@ class PartSegSSG(_PartSegmenter):
 
 class PartSegMSGOneHot(_PartSegmenter):
     def __init__(self, num_classes: int = NUM_PART_CLASSES,
-                 num_categories: int = NUM_CATEGORIES, dropout_rate: float = 0.5):
+                 num_categories: int = NUM_CATEGORIES, dropout_rate: float = 0.5,
+                 compute_dtype: torch.dtype = torch.float32):
+        dd = compute_dtype
         sa1 = SetAbstractionMSG(512, (0.1, 0.2, 0.4), (32, 64, 128), 3,
-                                ((32, 32, 64), (64, 64, 128), (64, 96, 128)))
+                                ((32, 32, 64), (64, 64, 128), (64, 96, 128)), compute_dtype=dd)
         sa2 = SetAbstractionMSG(128, (0.4, 0.8), (64, 128), sa1.out_channels,
-                                ((128, 128, 256), (128, 196, 256)))
+                                ((128, 128, 256), (128, 196, 256)), compute_dtype=dd)
         super().__init__(sa1, sa2, (128, 128), num_categories + POINT_CHANNELS, num_classes,
-                         dropout_rate)
+                         dropout_rate, dd)
         self.num_categories = num_categories
 
     def forward(self, point_cloud: torch.Tensor, cls_label: torch.Tensor,

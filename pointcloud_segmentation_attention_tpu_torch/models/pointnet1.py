@@ -14,8 +14,10 @@
   model; takes the object class one-hot and returns ``(cls_logits,
   seg_logits, {'transform': the 128x128 matrix})``.
 
-No kernel runs here: every layer is a ``PointConv`` (``torch.matmul``, BN,
-ReLU), on (B, N, C) per-point tensors and on (B, C) in the FC stacks.
+No kernel runs here: every layer is a ``PointConv`` (``mixed_matmul`` in
+the model's ``compute_dtype``, BN, ReLU), on (B, N, C) per-point tensors and
+on (B, C) in the FC stacks; the T-Nets' matrices and their products with
+the points stay float32, as in the JAX package.
 Module names are the Flax names (``transform_net1.tconv1``,
 ``transform_net2.transform_w``, ``conv3``, ``fc1``, ``cla_fc2``,
 ``seg_conv4``), so a JAX ``model.init`` loads through
@@ -33,11 +35,12 @@ from pointcloud_segmentation_attention_tpu_torch.nn import Dropout, PointConv
 
 
 def _stack(module: nn.Module, prefix: str, c_in: int, widths: Sequence[int],
-           first: int = 1) -> int:
+           first: int = 1, compute_dtype: torch.dtype = torch.float32) -> int:
     """Add ``PointConv``s with BN named ``{prefix}{first}``, ... to
     ``module``; returns the last width."""
     for i, f in enumerate(widths):
-        module.add_module(f"{prefix}{first + i}", PointConv(c_in, f))
+        module.add_module(f"{prefix}{first + i}",
+                          PointConv(c_in, f, compute_dtype=compute_dtype))
         c_in = f
     return c_in
 
@@ -56,11 +59,11 @@ class TransformNet(nn.Module):
     matrix starts at the identity."""
 
     def __init__(self, c_in: int, k: int, mlp: Sequence[int] = (64, 128, 1024),
-                 fc: Sequence[int] = (512, 256)):
+                 fc: Sequence[int] = (512, 256), compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.k, self.n_mlp, self.n_fc = k, len(mlp), len(fc)
-        c = _stack(self, "tconv", c_in, mlp)
-        c = _stack(self, "tfc", c, fc)
+        c = _stack(self, "tconv", c_in, mlp, compute_dtype=compute_dtype)
+        c = _stack(self, "tfc", c, fc, compute_dtype=compute_dtype)
         self.transform_w = nn.Parameter(torch.zeros(c, k * k))
         self.transform_b = nn.Parameter(torch.zeros(k * k))
 
@@ -84,13 +87,15 @@ def orthogonality_loss(transform: torch.Tensor) -> torch.Tensor:
 class PointNetClsBasic(nn.Module):
     """Per-point MLP conv1-5, a global max pool, fc1-2, dropout and fc3."""
 
-    def __init__(self, num_classes: int = 40, dropout_rate: float = 0.3):
+    def __init__(self, num_classes: int = 40, dropout_rate: float = 0.3,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        c = _stack(self, "conv", 3, (64, 64, 64, 128, 1024))
-        self.fc1 = PointConv(c, 512)
-        self.fc2 = PointConv(512, 256)
+        dd = compute_dtype
+        c = _stack(self, "conv", 3, (64, 64, 64, 128, 1024), compute_dtype=dd)
+        self.fc1 = PointConv(c, 512, compute_dtype=dd)
+        self.fc2 = PointConv(512, 256, compute_dtype=dd)
         self.dp1 = Dropout(dropout_rate)
-        self.fc3 = PointConv(256, num_classes, bn=False, activation=False)
+        self.fc3 = PointConv(256, num_classes, bn=False, activation=False, compute_dtype=dd)
 
     def forward(self, xyz: torch.Tensor, bn_momentum: float = 0.9,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -103,11 +108,11 @@ class _TNetFeatures(nn.Module):
     """The input T-Net, conv1-2 and the 64x64 feature T-Net that
     ``PointNetCls`` and ``PointNetSeg`` share."""
 
-    def __init__(self):
+    def __init__(self, compute_dtype: torch.dtype):
         super().__init__()
-        self.transform_net1 = TransformNet(3, 3)
-        _stack(self, "conv", 3, (64, 64))
-        self.transform_net2 = TransformNet(64, 64)
+        self.transform_net1 = TransformNet(3, 3, compute_dtype=compute_dtype)
+        _stack(self, "conv", 3, (64, 64), compute_dtype=compute_dtype)
+        self.transform_net2 = TransformNet(64, 64, compute_dtype=compute_dtype)
 
     def _point_features(self, xyz: torch.Tensor, bn_momentum: float):
         """(transformed (B,N,64) features, the feature transform)."""
@@ -120,14 +125,16 @@ class _TNetFeatures(nn.Module):
 class PointNetCls(_TNetFeatures):
     """PointNet v1 with the T-Nets: ``(logits, {'transform': (B,64,64)})``."""
 
-    def __init__(self, num_classes: int = 40, dropout_rate: float = 0.3):
-        super().__init__()
-        _stack(self, "conv", 64, (64, 128, 1024), first=3)
-        self.fc1 = PointConv(1024, 512)
+    def __init__(self, num_classes: int = 40, dropout_rate: float = 0.3,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(compute_dtype)
+        dd = compute_dtype
+        _stack(self, "conv", 64, (64, 128, 1024), first=3, compute_dtype=dd)
+        self.fc1 = PointConv(1024, 512, compute_dtype=dd)
         self.dp1 = Dropout(dropout_rate)
-        self.fc2 = PointConv(512, 256)
+        self.fc2 = PointConv(512, 256, compute_dtype=dd)
         self.dp2 = Dropout(dropout_rate)
-        self.fc3 = PointConv(256, num_classes, bn=False, activation=False)
+        self.fc3 = PointConv(256, num_classes, bn=False, activation=False, compute_dtype=dd)
 
     def forward(self, xyz: torch.Tensor, bn_momentum: float = 0.9,
                 generator: Optional[torch.Generator] = None):
@@ -143,11 +150,12 @@ class PointNetSeg(_TNetFeatures):
     with the tiled global feature, conv6-9 and ``conv10`` to the parts.
     Returns ``(logits (B,N,parts), {'transform': (B,64,64)})``."""
 
-    def __init__(self, num_classes: int = 50):
-        super().__init__()
-        _stack(self, "conv", 64, (64, 128, 1024), first=3)
-        _stack(self, "conv", 64 + 1024, (512, 256, 128, 128), first=6)
-        self.conv10 = PointConv(128, num_classes, bn=False, activation=False)
+    def __init__(self, num_classes: int = 50, compute_dtype: torch.dtype = torch.float32):
+        super().__init__(compute_dtype)
+        dd = compute_dtype
+        _stack(self, "conv", 64, (64, 128, 1024), first=3, compute_dtype=dd)
+        _stack(self, "conv", 64 + 1024, (512, 256, 128, 128), first=6, compute_dtype=dd)
+        self.conv10 = PointConv(128, num_classes, bn=False, activation=False, compute_dtype=dd)
 
     def forward(self, xyz: torch.Tensor, bn_momentum: float = 0.9,
                 generator: Optional[torch.Generator] = None):
@@ -161,14 +169,16 @@ class PointNetSeg(_TNetFeatures):
 class PointNetSemSeg(nn.Module):
     """S3DIS semantic segmentation: 9-channel blocks, 13 classes."""
 
-    def __init__(self, num_classes: int = 13, dropout_rate: float = 0.3):
+    def __init__(self, num_classes: int = 13, dropout_rate: float = 0.3,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        c = _stack(self, "conv", 9, (64, 64, 64, 128, 1024))
-        self.fc1 = PointConv(c, 256)
-        self.fc2 = PointConv(256, 128)
-        _stack(self, "conv", c + 128, (512, 256), first=6)
+        dd = compute_dtype
+        c = _stack(self, "conv", 9, (64, 64, 64, 128, 1024), compute_dtype=dd)
+        self.fc1 = PointConv(c, 256, compute_dtype=dd)
+        self.fc2 = PointConv(256, 128, compute_dtype=dd)
+        _stack(self, "conv", c + 128, (512, 256), first=6, compute_dtype=dd)
         self.dp1 = Dropout(dropout_rate)
-        self.conv8 = PointConv(256, num_classes, bn=False, activation=False)
+        self.conv8 = PointConv(256, num_classes, bn=False, activation=False, compute_dtype=dd)
 
     def forward(self, points: torch.Tensor, bn_momentum: float = 0.9,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -190,21 +200,25 @@ class PointNetPartSegJoint(nn.Module):
     seg_logits (B,N,part_num), {'transform': (B,128,128)})``."""
 
     def __init__(self, cat_num: int = 16, part_num: int = 50,
-                 cls_dropout_rate: float = 0.3, seg_dropout_rate: float = 0.2):
+                 cls_dropout_rate: float = 0.3, seg_dropout_rate: float = 0.2,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.transform_net1 = TransformNet(3, 3, mlp=(64, 128, 1024), fc=(128, 128))
-        _stack(self, "conv", 3, (64, 128, 128))
-        self.transform_net2 = TransformNet(128, 128, mlp=(256, 1024), fc=(512, 256))
-        _stack(self, "conv", 128, (512, 2048), first=4)
-        self.cla_fc1 = PointConv(2048, 256)
-        self.cla_fc2 = PointConv(256, 256)
+        dd = compute_dtype
+        self.transform_net1 = TransformNet(3, 3, mlp=(64, 128, 1024), fc=(128, 128),
+                                           compute_dtype=dd)
+        _stack(self, "conv", 3, (64, 128, 128), compute_dtype=dd)
+        self.transform_net2 = TransformNet(128, 128, mlp=(256, 1024), fc=(512, 256),
+                                           compute_dtype=dd)
+        _stack(self, "conv", 128, (512, 2048), first=4, compute_dtype=dd)
+        self.cla_fc1 = PointConv(2048, 256, compute_dtype=dd)
+        self.cla_fc2 = PointConv(256, 256, compute_dtype=dd)
         self.cla_dp1 = Dropout(cls_dropout_rate)
-        self.cla_fc3 = PointConv(256, cat_num, bn=False, activation=False)
+        self.cla_fc3 = PointConv(256, cat_num, bn=False, activation=False, compute_dtype=dd)
         seg_in = 2048 + cat_num + 64 + 128 + 128 + 512 + 2048
-        _stack(self, "seg_conv", seg_in, (256, 256, 128))
+        _stack(self, "seg_conv", seg_in, (256, 256, 128), compute_dtype=dd)
         self.seg_dp1 = Dropout(seg_dropout_rate)
         self.seg_dp2 = Dropout(seg_dropout_rate)
-        self.seg_conv4 = PointConv(128, part_num, bn=False, activation=False)
+        self.seg_conv4 = PointConv(128, part_num, bn=False, activation=False, compute_dtype=dd)
 
     def forward(self, xyz: torch.Tensor, cls_onehot: torch.Tensor, bn_momentum: float = 0.9,
                 generator: Optional[torch.Generator] = None):

@@ -34,7 +34,8 @@ FP_MLPS = ((256, 256), (256, 256), (256, 128), (128, 128, 128))
 class SemSegNet(nn.Module):
     """PointNet++ semantic segmentation.  ``in_features`` is the per-point
     feature width (0: xyz only; 6: colors + normals); ``sa_pooling`` one
-    ``SetAbstraction`` pooling per SA level."""
+    ``SetAbstraction`` pooling per SA level; ``compute_dtype`` the products'
+    dtype (``torch.bfloat16`` for mixed precision)."""
 
     def __init__(
         self,
@@ -47,23 +48,25 @@ class SemSegNet(nn.Module):
         sa_nsample: int = SA_NSAMPLE,
         sa_mlps: Sequence[Sequence[int]] = SA_MLPS,
         fp_mlps: Sequence[Sequence[int]] = FP_MLPS,
+        compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        dd = compute_dtype
         self.in_features = in_features
         widths = [in_features]
         for i in range(4):
             sa = SetAbstraction(sa_npoints[i], sa_radii[i], sa_nsample, widths[-1],
-                                sa_mlps[i], pooling=sa_pooling[i])
+                                sa_mlps[i], pooling=sa_pooling[i], compute_dtype=dd)
             self.add_module(f"sa{i + 1}", sa)
             widths.append(sa.out_channels)
         up = widths[4]
         for i in range(4):
-            fp = FeaturePropagation(up + widths[3 - i], fp_mlps[i])
+            fp = FeaturePropagation(up + widths[3 - i], fp_mlps[i], dd)
             self.add_module(f"fp{i + 1}", fp)
             up = fp.out_channels
-        self.fc1 = PointConv(up, 128, bn=True)
+        self.fc1 = PointConv(up, 128, bn=True, compute_dtype=dd)
         self.dp1 = Dropout(dropout_rate)
-        self.fc2 = PointConv(128, num_classes, bn=False, activation=False)
+        self.fc2 = PointConv(128, num_classes, bn=False, activation=False, compute_dtype=dd)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """Re-draw every kernel from ``generator``; zero biases, unit BN."""

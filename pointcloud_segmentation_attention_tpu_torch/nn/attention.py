@@ -15,7 +15,10 @@ The math is the reference's, quirks included, as in the JAX package:
   pre-FF -> inner attention -> FF with a residual.
 
 No Pallas kernel computes any of this in the JAX package (XLA's einsums and
-softmax do), so here it is plain PyTorch: ``torch.matmul`` and ``softmax``.
+softmax do), so here it is plain PyTorch: ``mixed_matmul`` and ``softmax``.
+Every layer takes a ``compute_dtype``: its projections and both attention
+products run in it with float32 results, and the softmax weights are
+rounded to it before the second product, as the JAX package computes them.
 Submodule names follow Flax's, so checkpoints of the JAX package map onto
 the state dict by name.  Dropout draws from the ``generator`` passed to
 ``forward`` and is the identity in eval mode.
@@ -28,13 +31,15 @@ from typing import Optional
 import torch
 from torch import nn
 
-from pointcloud_segmentation_attention_tpu_torch.nn.layers import Dense, Dropout
+from pointcloud_segmentation_attention_tpu_torch.nn.layers import Dense, Dropout, mixed_matmul
 
 
-def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """softmax(q k^T / sqrt(d)) v over the last two axes."""
-    logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
-    return torch.matmul(torch.softmax(logits, dim=-1), v)
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            compute_dtype: torch.dtype) -> torch.Tensor:
+    """softmax(q k^T / sqrt(d)) v over the last two axes, both products in
+    ``compute_dtype`` with float32 results."""
+    logits = mixed_matmul(q, k.transpose(-1, -2), compute_dtype) / math.sqrt(q.shape[-1])
+    return mixed_matmul(torch.softmax(logits, dim=-1), v, compute_dtype)
 
 
 class AttentionPool(nn.Module):
@@ -44,12 +49,13 @@ class AttentionPool(nn.Module):
     Returns (B, npoint, num_heads * key_dim)."""
 
     def __init__(self, c_in: int, c_query: int, output_dim: int, key_dim: int,
-                 num_heads: int = 16):
+                 num_heads: int = 16, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.key_dim, self.num_heads = key_dim, num_heads
-        self.query_net = Dense(c_query, key_dim * num_heads)
-        self.key_net = Dense(c_in, key_dim * num_heads)
-        self.value_net = Dense(c_in, output_dim * num_heads)
+        self.compute_dtype = compute_dtype
+        self.query_net = Dense(c_query, key_dim * num_heads, compute_dtype)
+        self.key_net = Dense(c_in, key_dim * num_heads, compute_dtype)
+        self.value_net = Dense(c_in, output_dim * num_heads, compute_dtype)
 
     def forward(self, group_feats: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
         b, npoint, nsample, _ = group_feats.shape
@@ -58,7 +64,7 @@ class AttentionPool(nn.Module):
         q = self.query_net(query).reshape(b, npoint, h, 1, kd)
         k = self.key_net(group_feats).reshape(b, npoint, h, nsample, kd)
         v = self.value_net(group_feats).reshape(b, npoint, h, nsample, kd)
-        return _attend(q, k, v).reshape(b, npoint, h * kd)
+        return _attend(q, k, v, self.compute_dtype).reshape(b, npoint, h * kd)
 
 
 class InnerAttention(nn.Module):
@@ -66,19 +72,21 @@ class InnerAttention(nn.Module):
     (B, np, S, h*kd) is split to (B, np, S, h, kd) and the softmax runs over
     the heads of each point.  Then ``out_net`` to ``output_dim``."""
 
-    def __init__(self, c_in: int, output_dim: int, key_dim: int, num_heads: int = 5):
+    def __init__(self, c_in: int, output_dim: int, key_dim: int, num_heads: int = 5,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.key_dim, self.num_heads = key_dim, num_heads
-        self.query_net = Dense(c_in, key_dim * num_heads)
-        self.key_net = Dense(c_in, key_dim * num_heads)
-        self.value_net = Dense(c_in, key_dim * num_heads)
-        self.out_net = Dense(key_dim * num_heads, output_dim)
+        self.compute_dtype = compute_dtype
+        self.query_net = Dense(c_in, key_dim * num_heads, compute_dtype)
+        self.key_net = Dense(c_in, key_dim * num_heads, compute_dtype)
+        self.value_net = Dense(c_in, key_dim * num_heads, compute_dtype)
+        self.out_net = Dense(key_dim * num_heads, output_dim, compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, npoint, nsample, _ = x.shape
         split = (b, npoint, nsample, self.num_heads, self.key_dim)
         out = _attend(self.query_net(x).reshape(split), self.key_net(x).reshape(split),
-                      self.value_net(x).reshape(split))
+                      self.value_net(x).reshape(split), self.compute_dtype)
         return self.out_net(out.reshape(b, npoint, nsample, -1))
 
 
@@ -87,12 +95,12 @@ class FeedForward(nn.Module):
     ``input_and_output_dim`` (``layer_1`` .. ``layer_4``)."""
 
     def __init__(self, c_in: int, input_and_output_dim: int, inner_dim: int,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         for i, c in enumerate((c_in, inner_dim, inner_dim)):
-            self.add_module(f"layer_{i + 1}", Dense(c, inner_dim))
+            self.add_module(f"layer_{i + 1}", Dense(c, inner_dim, compute_dtype))
             self.add_module(f"drop_{i + 1}", Dropout(dropout))
-        self.layer_4 = Dense(inner_dim, input_and_output_dim)
+        self.layer_4 = Dense(inner_dim, input_and_output_dim, compute_dtype)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -105,11 +113,13 @@ class FeedForward(nn.Module):
 class InnerAttentionBlock(nn.Module):
     """pre-FF -> inner attention -> FF with a residual around the last."""
 
-    def __init__(self, c_in: int, out_dim: int, key_dim: int):
+    def __init__(self, c_in: int, out_dim: int, key_dim: int,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.pre_feed_forward = FeedForward(c_in, out_dim, out_dim)
-        self.attention = InnerAttention(out_dim, out_dim, key_dim)
-        self.feed_forward = FeedForward(out_dim, out_dim, out_dim)
+        dd = compute_dtype
+        self.pre_feed_forward = FeedForward(c_in, out_dim, out_dim, compute_dtype=dd)
+        self.attention = InnerAttention(out_dim, out_dim, key_dim, compute_dtype=dd)
+        self.feed_forward = FeedForward(out_dim, out_dim, out_dim, compute_dtype=dd)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -5,6 +5,12 @@ Counterparts of the JAX package's ``nn/layers.py``.  Kernels keep Flax's
 (in, out) layout, so checkpoints of the JAX package load without transposes.
 Parameters are created by ``reset_parameters(generator)`` from an explicit
 ``torch.Generator``.
+
+Mixed precision: ``PointConv`` and ``Dense`` take a ``compute_dtype``.
+Parameters stay float32; under ``torch.bfloat16`` the product takes both
+operands rounded to bf16 and returns float32 (``mixed_matmul``, JAX's
+``preferred_element_type=float32``), and the bias, BN and ReLU run in
+float32 on that output.
 """
 from __future__ import annotations
 
@@ -82,6 +88,58 @@ class ScheduledBatchNorm(nn.Module):
             self.var.copy_(momentum * self.var + (1.0 - momentum) * var)
 
 
+def _product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The float32 product of two 2-D or two batched 3-D tensors of one
+    low-precision dtype.  On the card cuBLAS multiplies them as they are and
+    accumulates in float32 (``out_dtype``); on the CPU they are widened
+    first, which is the same sum of exact products in another order."""
+    if a.is_cuda:
+        return (torch.mm if a.dim() == 2 else torch.bmm)(a, b, out_dtype=torch.float32)
+    return torch.matmul(a.float(), b.float())
+
+
+class _MixedProduct(torch.autograd.Function):
+    """``a @ b`` of float32 tensors, taken on their ``dtype`` roundings with a
+    float32 result.  The backward is JAX's transpose of ``dot_general`` with
+    ``preferred_element_type=float32`` followed by the ``astype`` VJP: each
+    cotangent product is float32 (g with the other operand's rounding), then
+    rounded to ``dtype`` and widened back to float32."""
+
+    @staticmethod
+    def forward(ctx, a, b, dtype):
+        a_c, b_c = a.to(dtype), b.to(dtype)
+        ctx.save_for_backward(a_c, b_c)
+        ctx.dtype = dtype
+        return _product(a_c, b_c)
+
+    @staticmethod
+    def backward(ctx, g):
+        a_c, b_c = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = torch.matmul(g, b_c.float().transpose(-1, -2)).to(ctx.dtype).float()
+        if ctx.needs_input_grad[1]:
+            db = torch.matmul(a_c.float().transpose(-1, -2), g).to(ctx.dtype).float()
+        return da, db, None
+
+
+def mixed_matmul(a: torch.Tensor, b: torch.Tensor,
+                 compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``a @ b`` in ``compute_dtype`` with a float32 result: ``torch.matmul``
+    for float32; otherwise JAX's ``einsum(a.astype(dd), b.astype(dd),
+    preferred_element_type=float32)`` (``_MixedProduct``).  ``b`` is a 2-D
+    kernel (``a`` any (..., K)) or has ``a``'s batch axes."""
+    if compute_dtype == torch.float32:
+        return torch.matmul(a, b)
+    if b.dim() == 2:
+        out = _MixedProduct.apply(a.reshape(-1, a.shape[-1]), b, compute_dtype)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+    batch = a.shape[:-2]
+    out = _MixedProduct.apply(a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:]),
+                              compute_dtype)
+    return out.reshape(*batch, *out.shape[-2:])
+
+
 def _xavier_uniform_(kernel: torch.Tensor, bias: torch.Tensor,
                      generator: Optional[torch.Generator]) -> None:
     """Draw an (in, out) kernel xavier-uniform from ``generator``; zero the bias."""
@@ -96,10 +154,13 @@ def _xavier_uniform_(kernel: torch.Tensor, bias: torch.Tensor,
 class PointConv(nn.Module):
     """Pointwise (1x1) conv over the channel axis: ``x @ kernel + bias``, then
     optional BN and ReLU.  Works on any (..., C_in) tensor.  The matmul is
-    ``torch.matmul``, as the JAX package leaves it to XLA."""
+    ``mixed_matmul`` in ``compute_dtype`` (``torch.matmul`` in float32), as
+    the JAX package leaves it to XLA."""
 
-    def __init__(self, c_in: int, features: int, bn: bool = True, activation: bool = True):
+    def __init__(self, c_in: int, features: int, bn: bool = True, activation: bool = True,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.kernel = nn.Parameter(torch.empty(c_in, features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.bn = ScheduledBatchNorm(features) if bn else None
@@ -111,7 +172,7 @@ class PointConv(nn.Module):
         _xavier_uniform_(self.kernel, self.bias, generator)
 
     def forward(self, x: torch.Tensor, bn_momentum: float = 0.9) -> torch.Tensor:
-        y = torch.matmul(x, self.kernel) + self.bias
+        y = mixed_matmul(x, self.kernel, self.compute_dtype) + self.bias
         if self.bn is not None:
             y = self.bn(y, momentum=bn_momentum)
         if self.activation:
@@ -122,11 +183,12 @@ class PointConv(nn.Module):
 class SharedMLP(nn.Module):
     """Stack of PointConv + BN + ReLU layers named ``conv0``, ``conv1``, ..."""
 
-    def __init__(self, c_in: int, features: Sequence[int]):
+    def __init__(self, c_in: int, features: Sequence[int],
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_layers = len(features)
         for i, f in enumerate(features):
-            self.add_module(f"conv{i}", PointConv(c_in, f))
+            self.add_module(f"conv{i}", PointConv(c_in, f, compute_dtype=compute_dtype))
             c_in = f
         self.out_channels = c_in
 
@@ -139,10 +201,12 @@ class SharedMLP(nn.Module):
 class Dense(nn.Module):
     """Plain dense layer, ``x @ kernel + bias`` over the last axis: an (in,
     out) kernel drawn xavier-uniform, a zero bias (tf.layers.Dense's
-    initialisers, as the JAX package's ``Dense``)."""
+    initialisers, as the JAX package's ``Dense``); the product in
+    ``compute_dtype`` (``mixed_matmul``)."""
 
-    def __init__(self, c_in: int, features: int):
+    def __init__(self, c_in: int, features: int, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.kernel = nn.Parameter(torch.empty(c_in, features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.reset_parameters()
@@ -151,7 +215,7 @@ class Dense(nn.Module):
         _xavier_uniform_(self.kernel, self.bias, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x, self.kernel) + self.bias
+        return mixed_matmul(x, self.kernel, self.compute_dtype) + self.bias
 
 
 class Dropout(nn.Module):

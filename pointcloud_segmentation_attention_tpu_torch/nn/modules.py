@@ -13,7 +13,9 @@ and the optional ``mlp2`` stage after the pooling; kNN grouping
 (``knn``), grouping without the centred xyz (``use_xyz=False``), the
 whole cloud as one group (``group_all``, ``sample_and_group_all``), and
 multi-scale grouping (``SetAbstractionMSG``, which gathers [features, xyz]
-with xyz LAST, as the reference does).
+with xyz LAST, as the reference does).  Each module passes its
+``compute_dtype`` to its MLPs and attention poolings; the geometry and
+every kernel input stay float32.
 """
 from __future__ import annotations
 
@@ -96,14 +98,15 @@ class SetAbstraction(nn.Module):
     def __init__(self, npoint: Optional[int], radius: Optional[float], nsample: Optional[int],
                  c_in: int, mlp: Sequence[int], pooling: str = "max",
                  mlp2: Optional[Sequence[int]] = None, group_all: bool = False,
-                 knn: bool = False, use_xyz: bool = True):
+                 knn: bool = False, use_xyz: bool = True,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         if pooling not in POOLINGS:
             raise ValueError(f"unknown pooling: {pooling}")
         self.npoint, self.radius, self.nsample = npoint, radius, nsample
         self.pooling = pooling
         self.group_all, self.knn, self.use_xyz = group_all, knn, use_xyz
-        self.mlp = SharedMLP(_group_channels(c_in, use_xyz), mlp)
+        self.mlp = SharedMLP(_group_channels(c_in, use_xyz), mlp, compute_dtype)
         c = self.mlp.out_channels
         if pooling.startswith("attention"):
             if c % 4:
@@ -111,11 +114,11 @@ class SetAbstraction(nn.Module):
                                  f"(heads = C/4 x key_dim 4); got {c}")
             self.attention_pool = AttentionPool(
                 c, 3 if pooling == "attention_centroid" else c, output_dim=4, key_dim=4,
-                num_heads=c // 4)
+                num_heads=c // 4, compute_dtype=compute_dtype)
             self.attention_bn = ScheduledBatchNorm(c)
         if pooling == "max_and_avg":
             c *= 2
-        self.mlp2 = SharedMLP(c, mlp2) if mlp2 else None
+        self.mlp2 = SharedMLP(c, mlp2, compute_dtype) if mlp2 else None
         self.out_channels = self.mlp2.out_channels if mlp2 else c
 
     def forward(self, xyz: torch.Tensor, points: Optional[torch.Tensor],
@@ -162,14 +165,15 @@ class SetAbstractionMSG(nn.Module):
     new_points (B,np,sum of mlp[-1]))."""
 
     def __init__(self, npoint: int, radius_list: Sequence[float], nsample_list: Sequence[int],
-                 c_in: int, mlp_list: Sequence[Sequence[int]], use_xyz: bool = True):
+                 c_in: int, mlp_list: Sequence[Sequence[int]], use_xyz: bool = True,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.npoint = npoint
         self.radius_list, self.nsample_list = tuple(radius_list), tuple(nsample_list)
         self.use_xyz = use_xyz
         c = _group_channels(c_in, use_xyz)
         for i, mlp in enumerate(mlp_list):
-            self.add_module(f"branch{i}", SharedMLP(c, mlp))
+            self.add_module(f"branch{i}", SharedMLP(c, mlp, compute_dtype))
         self.out_channels = sum(mlp[-1] for mlp in mlp_list)
 
     def forward(self, xyz: torch.Tensor, points: Optional[torch.Tensor],
@@ -197,9 +201,10 @@ class FeaturePropagation(nn.Module):
     """FP module: 3-NN inverse-distance interpolation + skip concat + MLP;
     ``c_in`` counts the interpolated plus the skip channels."""
 
-    def __init__(self, c_in: int, mlp: Sequence[int]):
+    def __init__(self, c_in: int, mlp: Sequence[int],
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.mlp = SharedMLP(c_in, mlp)
+        self.mlp = SharedMLP(c_in, mlp, compute_dtype)
         self.out_channels = self.mlp.out_channels
 
     def forward(self, xyz1: torch.Tensor, xyz2: torch.Tensor,

@@ -15,11 +15,15 @@ trainer and evaluator: the port of the JAX package's
   pooling (``synthetic_convergence`` with an attention model).
 - ``run_attention_net_convergence``: the full attention nets through
   ``train(config)`` with the on-device sampler.
+- ``run_v1_scannet_convergence``: geometry-coded synthetic ScanNet ->
+  ``train_scannet_v1`` (``sem_seg``, xyz only) -> the whole-scene
+  evaluator with the calibrated surface-voxel accuracy.
+- ``run_extended`` (``main --extended``): the extension arms, ``cls_msg``
+  with normals, ``part_seg_msg_one_hot`` against ``part_seg``,
+  ``pointnet1_seg``, ``attention_net`` and the v1 whole-scene trainer.
 
-``run_v1_scannet_convergence`` and ``run_extended`` (which trains it) raise
-``NotImplementedError``: the v1 ScanNet trainer is not ported yet (ROADMAP
-Queue 1 item 6).  Defaults equal the JAX package's; every ``run_*`` takes
-``device`` (default cuda).
+Defaults equal the JAX package's; every ``run_*`` takes ``device`` (default
+cuda).
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from typing import Optional
 from pointcloud_segmentation_attention_tpu_torch.data.modelnet import write_synthetic_modelnet
 from pointcloud_segmentation_attention_tpu_torch.data.s3dis import make_synthetic_room
 from pointcloud_segmentation_attention_tpu_torch.data.scannet.scenes import (
+    read_split,
     write_synthetic_dataset,
 )
 from pointcloud_segmentation_attention_tpu_torch.data.shapenet_part import (
@@ -44,11 +49,12 @@ from pointcloud_segmentation_attention_tpu_torch.train.partseg_trainer import (
     train_part_segmentation,
 )
 from pointcloud_segmentation_attention_tpu_torch.train.s3dis_trainer import train_s3dis
+from pointcloud_segmentation_attention_tpu_torch.train.v1_scannet_trainer import (
+    train_scannet_v1,
+)
 from pointcloud_segmentation_attention_tpu_torch.utils.config import TrainConfig
 
 _CACHE_SENTINEL = "DONE"
-_NOT_PORTED = ("the PointNet v1 ScanNet trainer (pc_util, v1_compat, v1_scannet_trainer) "
-               "is not ported yet (ROADMAP Queue 1 item 6)")
 
 
 def _cache_complete(data_root: str) -> bool:
@@ -167,9 +173,43 @@ def run_s3dis_convergence(
     return summary
 
 
-def run_v1_scannet_convergence(workdir: str, **kwargs) -> dict:
-    """The upstream ScanNet v1 trainer: not ported yet."""
-    raise NotImplementedError(f"run_v1_scannet_convergence: {_NOT_PORTED}")
+def run_v1_scannet_convergence(
+    workdir: str,
+    dataset_kind: str = "whole",
+    n_train_scenes: int = 6,
+    n_val_scenes: int = 2,
+    scene_points: int = 20000,
+    npoints: int = 2048,
+    batch_size: int = 4,
+    epochs: int = 8,
+    n_devices: Optional[int] = None,
+    seed: int = 0,
+    max_steps: Optional[int] = None,
+    *,
+    device="cuda",
+) -> dict:
+    """The upstream ScanNet v1 trainer end to end: whole-scene (or chunk or
+    virtual-scan) training batches with weighted point dropout, then the
+    whole-scene evaluator with point accuracy, mIoU and the calibrated
+    surface-voxel accuracy.  The rooms are geometry-coded: the v1 trainer
+    feeds xyz only, so their blob labels must be predictable from the
+    geometry for the held-out mIoU to show learning."""
+    data_root = os.path.join(
+        workdir, f"scannet_v1g_{n_train_scenes}_{n_val_scenes}_{scene_points}_{seed}")
+    if not _cache_complete(data_root):
+        write_synthetic_dataset(data_root, n_train=n_train_scenes, n_val=n_val_scenes,
+                                n_points=scene_points, seed=seed, color_coded=True,
+                                geometry_coded=True)
+        _mark_cache_complete(data_root)
+    splits = os.path.join(data_root, "splits")
+    summary = train_scannet_v1(
+        data_root, read_split(splits, "train"), read_split(splits, "val"), npoints=npoints,
+        batch_size=batch_size, epochs=epochs,
+        log_dir=os.path.join(workdir, f"v1_scannet_{dataset_kind}"), n_devices=n_devices,
+        seed=seed, dataset_kind=dataset_kind, max_steps=max_steps, device=device)
+    summary["model"] = "sem_seg (v1 trainer)"
+    summary["dataset_kind"] = dataset_kind
+    return summary
 
 
 def run_attention_net_convergence(
@@ -207,17 +247,36 @@ def run_attention_net_convergence(
     return summary
 
 
-def run_extended(workdir: str, **kwargs) -> dict:
-    """The extension arms, which train the v1 whole-scene trainer besides
-    the ported families: not ported yet.  Their ported arms run alone
-    through ``main --arms``."""
-    raise NotImplementedError(f"run_extended: {_NOT_PORTED}")
+def run_extended(workdir: str, epochs: int = 60, n_devices: Optional[int] = None,
+                 seed: int = 0, *, device="cuda") -> dict:
+    """The extension arms: every family beyond the default arms trained to
+    shown learning.  ``part_seg_msg_one_hot`` trains on the same corpus and
+    seed as ``part_seg``, and the difference of their class-average IoU is
+    recorded (``one_hot_minus_plain_class_avg_iou``): what the object-class
+    conditioning adds.  The attention net and the v1 whole-scene arm run at
+    their own defaults."""
+    common = dict(n_devices=n_devices, seed=seed, device=device)
+    results = {"cls_msg": run_cls_convergence(workdir, "cls_msg", epochs=epochs,
+                                              normal_channel=True, **common)}
+    plain = run_partseg_convergence(workdir, "part_seg", epochs=epochs, **common)
+    onehot = run_partseg_convergence(workdir, "part_seg_msg_one_hot", epochs=epochs, **common)
+    results["part_seg"] = plain
+    results["part_seg_msg_one_hot"] = onehot
+    results["one_hot_minus_plain_class_avg_iou"] = (
+        onehot.get("best_class_avg_iou", 0.0) - plain.get("best_class_avg_iou", 0.0))
+    results["pointnet1_seg"] = run_partseg_convergence(workdir, "pointnet1_seg",
+                                                       epochs=epochs, **common)
+    results["attention_net"] = run_attention_net_convergence(workdir, **common)
+    results["v1_scannet_whole"] = run_v1_scannet_convergence(workdir, dataset_kind="whole",
+                                                             **common)
+    return results
 
 
-# main's arms: name -> (function, keyword arguments besides epochs).  The
-# default arms are the JAX main's (cls_ssg, pointnet1_cls, part_seg,
-# pointnet1_sem_seg, then the attention arm); the others are its extended
-# arms, each alone.
+# main's arms: name -> (function, keyword arguments).  main passes --epochs
+# to every arm but the v1 whole-scene one, which keeps its 8 epochs as in
+# ``run_extended``.  The default arms are the JAX main's (cls_ssg,
+# pointnet1_cls, part_seg, pointnet1_sem_seg, then the attention arm); the
+# others are its extended arms, each alone.
 ARMS = {
     "cls_ssg": (run_cls_convergence, dict(model_name="cls_ssg")),
     "pointnet1_cls": (run_cls_convergence, dict(model_name="pointnet1_cls")),
@@ -227,9 +286,9 @@ ARMS = {
     "part_seg_msg_one_hot": (run_partseg_convergence,
                              dict(model_name="part_seg_msg_one_hot")),
     "pointnet1_seg": (run_partseg_convergence, dict(model_name="pointnet1_seg")),
+    "v1_scannet_whole": (run_v1_scannet_convergence, dict(dataset_kind="whole")),
 }
 DEFAULT_ARMS = ("cls_ssg", "pointnet1_cls", "part_seg", "pointnet1_sem_seg")
-UNPORTED_ARMS = ("v1_scannet_whole",)
 
 
 def main(argv=None):
@@ -241,25 +300,32 @@ def main(argv=None):
     p.add_argument("--attention_epochs", type=int, default=100)
     p.add_argument("--results", default=None)
     p.add_argument("--arms", nargs="+", default=list(DEFAULT_ARMS),
-                   help=f"any of {sorted(ARMS)}; {list(UNPORTED_ARMS)} are not ported yet")
+                   help=f"any of {sorted(ARMS)}")
     p.add_argument("--skip_attention", action="store_true")
-    p.add_argument("--extended", action="store_true")
+    p.add_argument("--extended", action="store_true",
+                   help="run the extension arms (run_extended) instead, into "
+                        "results_ext.json")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    unported = [a for a in args.arms if a in UNPORTED_ARMS]
-    if args.extended or unported:
-        raise NotImplementedError(f"{'--extended' if args.extended else unported}: "
-                                  f"{_NOT_PORTED}")
+    os.makedirs(args.workdir, exist_ok=True)
+    if args.extended:
+        results = run_extended(args.workdir, epochs=args.epochs, device=args.device)
+        out = args.results or os.path.join(args.workdir, "results_ext.json")
+        with open(out, "w") as f:
+            json.dump(results, f, indent=2, default=float)
+        print(json.dumps(results, indent=2, default=float))
+        return results
     unknown = [a for a in args.arms if a not in ARMS]
     if unknown:
         raise ValueError(f"unknown arms {unknown}; available: {sorted(ARMS)}")
-    os.makedirs(args.workdir, exist_ok=True)
     results = {}
     for arm in args.arms:
         fn, kw = ARMS[arm]
         # The JAX main caps the S3DIS arm at 30 epochs.
         epochs = min(args.epochs, 30) if fn is run_s3dis_convergence else args.epochs
-        results[arm] = fn(args.workdir, epochs=epochs, device=args.device, **kw)
+        if fn is not run_v1_scannet_convergence:
+            kw = dict(kw, epochs=epochs)
+        results[arm] = fn(args.workdir, device=args.device, **kw)
     if not args.skip_attention:
         results["sem_seg_attention"] = run_attention_convergence(
             args.workdir, epochs=args.attention_epochs, n_train_scenes=8, n_val_scenes=2,

@@ -115,10 +115,12 @@ def _batch_metrics(logits: torch.Tensor, labels: torch.Tensor, num_classes: int)
 
 
 # The matmul outputs that ``remat='dots'`` keeps (``torch.matmul`` on (B, N,
-# K, C) x (C, F) lowers to ``mm``; batched products to ``bmm``); JAX's
+# K, C) x (C, F) lowers to ``mm``; batched products to ``bmm``; the card's
+# bf16 products with float32 outputs to their ``dtype`` overloads); JAX's
 # ``jax.checkpoint_policies.dots_saveable``.  Every other op is recomputed.
 _DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
-                   torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default})
+                   torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default,
+                   torch.ops.aten.mm.dtype, torch.ops.aten.bmm.dtype})
 
 
 def _dots_saveable(ctx, op, *args, **kwargs):

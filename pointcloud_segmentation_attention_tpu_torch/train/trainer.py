@@ -17,8 +17,9 @@ package's formats.
 Run it as ``python -m pointcloud_segmentation_attention_tpu_torch.train.trainer
 --device=cuda|cpu --data_root=... [--<TrainConfig field>=...]``.
 
-Not ported yet, each raising ``NotImplementedError``:
-``compute_dtype='bfloat16'`` and more than one device.
+``compute_dtype='bfloat16'`` builds the model with bf16 products and
+float32 parameters (``nn/layers.py:mixed_matmul``); more than one device
+raises ``NotImplementedError`` (not ported yet).
 """
 from __future__ import annotations
 
@@ -64,21 +65,17 @@ from pointcloud_segmentation_attention_tpu_torch.utils.config import TrainConfig
 from pointcloud_segmentation_attention_tpu_torch.utils.logging import MetricLogger
 
 
-def _refuse_mixed_precision(config: TrainConfig) -> None:
-    if config.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={config.compute_dtype!r}: mixed precision is not ported yet "
-            "(ROADMAP Queue 1 item 4)")
-
-
 def select_model(config: TrainConfig, *, device="cuda",
                  generator: Optional[torch.Generator] = None):
     """The registry model of ``config.model`` with ``model_overrides``, fed
     3 x use_colors + 3 x use_normals feature channels; the single-layer
-    attention model takes ``attention_single_layer`` as its layer."""
-    _refuse_mixed_precision(config)
+    attention model takes ``attention_single_layer`` as its layer.
+    ``compute_dtype`` 'bfloat16' selects bf16 products; any other string
+    float32, as in the JAX trainer."""
     kw = dict(num_classes=config.num_classes,
               in_features=3 * int(config.use_colors) + 3 * int(config.use_normals))
+    if config.compute_dtype == "bfloat16":
+        kw["compute_dtype"] = torch.bfloat16
     if config.model_overrides:
         kw.update({k: tuple(tuple(x) if isinstance(x, list) else x for x in v)
                    if isinstance(v, list) else v for k, v in config.model_overrides.items()})
@@ -121,7 +118,6 @@ def resolve_input_mode(config: TrainConfig) -> str:
 
 
 def _refuse_unported(config: TrainConfig) -> None:
-    _refuse_mixed_precision(config)
     if config.n_devices not in (None, 1):
         raise NotImplementedError(
             f"n_devices={config.n_devices}: training on more than one device is not "

@@ -4,9 +4,9 @@ The port's own copy of the JAX package's ``utils/config.py``: the same
 fields, defaults and JSON, so a ``config.json`` written by either package
 loads in the other.  The device is not a field: it is a keyword of
 ``train.trainer.train`` and ``make_eval_state`` and the ``--device`` flag of
-``train.trainer.main``.  Fields of paths the port does not run yet
-(``compute_dtype='bfloat16'``, ``n_devices`` > 1) are kept so such configs
-load; ``train`` raises ``NotImplementedError`` for them.
+``train.trainer.main``.  The field of a path the port does not run yet
+(``n_devices`` > 1) is kept so such configs load; ``train`` raises
+``NotImplementedError`` for it.
 """
 from __future__ import annotations
 
@@ -59,7 +59,7 @@ class TrainConfig:
     model: str = "sem_seg_features"
     num_classes: int = 21
     attention_single_layer: int = -1
-    compute_dtype: str = "float32"  # 'bfloat16' is not ported
+    compute_dtype: str = "float32"  # 'bfloat16': bf16 products, float32 parameters
     # Extra keyword arguments of the model (e.g. sa_npoints / sa_mlps
     # hierarchies, dropout_rate); a JSON dict.
     model_overrides: Optional[dict] = None

@@ -1,11 +1,12 @@
 """Where the serving and training time goes on the card: a profiler breakdown.
 
     python -m pointcloud_segmentation_attention_tpu_torch.utils.trace_breakdown [--model NAME]
+        [--compute_dtype float32|bfloat16]
 
 Runs a full-width registry model (``--model``, default ``sem_seg_features``;
-seeded weights; fed colors and normals where it takes them, else xyz only)
-on CUDA and profiles three windows with ``torch.profiler`` (CPU + CUDA
-activities):
+seeded weights; fed colors and normals where it takes them, else xyz only;
+bf16 products with ``--compute_dtype bfloat16``) on CUDA and profiles three
+windows with ``torch.profiler`` (CPU + CUDA activities):
 
 1. ``forward``: ``STEPS`` eval forwards at B16 x 8192, the serving batch.
 2. ``serve``: one synthetic 150k-point room through the whole serving path
@@ -24,7 +25,7 @@ For each window it prints the device time per kernel group (the CUDA
 kernels of ``csrc/`` by name, GEMMs, the rest), the window's wall time and
 the device's busy share (kernel time over wall).  The JSON result and a
 Chrome trace of each window go to the output directory ``OUT`` (named with
-the model for any but ``sem_seg_features``).
+the model for any but ``sem_seg_features``, and ``_bf16`` for bf16).
 """
 from __future__ import annotations
 
@@ -184,16 +185,20 @@ def resident_stages(server: rs.ResidentSceneServer, scene: dict) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", default="sem_seg_features", help="registry name")
-    name = ap.parse_args().model
+    ap.add_argument("--compute_dtype", default="float32", choices=("float32", "bfloat16"))
+    args = ap.parse_args()
+    name = args.model
+    dtype = {"compute_dtype": getattr(torch, args.compute_dtype)}
     if not torch.cuda.is_available():
         raise SystemExit("trace_breakdown measures the card; CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     os.makedirs(OUT, exist_ok=True)
-    suffix = "" if name == "sem_seg_features" else f"_{name}"
+    suffix = ("" if name == "sem_seg_features" else f"_{name}") + (
+        "_bf16" if args.compute_dtype == "bfloat16" else "")
     kernels.build()
-    model = models.seeded_model(name, seed=SEED, device=dev)
+    model = models.seeded_model(name, seed=SEED, device=dev, **dtype)
     use_feats = model.in_features > 0
     rng = np.random.RandomState(SEED)
     pts = torch.from_numpy((rng.rand(BATCH, NPOINTS, 3) * EXTENT)
@@ -277,7 +282,7 @@ def main() -> int:
             chunks.append({"points": p, "labels": lab, "colors": col, "normals": nrm,
                            "weights": w})
         batches.append(make_batch(chunks, use_feats, use_feats, "f32"))
-    state = TrainState(models.seeded_model(name, seed=SEED, device=dev))
+    state = TrainState(models.seeded_model(name, seed=SEED, device=dev, **dtype))
     for b in batches[:3]:
         seg_train_step(state, b)
     torch.cuda.synchronize()
@@ -297,11 +302,13 @@ def main() -> int:
                           check=True).stdout.strip().splitlines()[0]
     print(card)
     result = {"device": torch.cuda.get_device_name(0), "card": card, "model": name,
+              "compute_dtype": args.compute_dtype,
               "forward": fwd, "serve": srv, "serve_resident": res, "train": trn,
               "batch": BATCH, "npoints": NPOINTS}
     with open(os.path.join(OUT, f"trace_breakdown{suffix}.json"), "w") as f:
         json.dump(result, f, indent=1)
-    print(json.dumps({"model": name, "forward_ms": fwd["per_forward_ms"],
+    print(json.dumps({"model": name, "compute_dtype": args.compute_dtype,
+                      "forward_ms": fwd["per_forward_ms"],
                       "forward_busy_share": fwd["device_busy_share"],
                       "serve_busy_share": srv["device_busy_share"],
                       "serve_resident_points_per_s": res["points_per_s"],

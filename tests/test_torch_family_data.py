@@ -8,9 +8,11 @@ be bit-identical to the JAX package's from the same seeds (the same
 JAX's on the same logits and the same deterministic ``predict_fn``.  The
 two trainers run a few CPU steps through their ``main --device cpu``, and
 their summaries carry the keys of the JAX package's vendored results
-(``RESULTS_family_convergence.json``); the recipes' defaults equal JAX's.
+(``RESULTS_family_convergence.json``); the recipes' defaults equal JAX's,
+and the recipes and ``main``'s arms run tiny (the v1 ScanNet arm too).
 """
 import filecmp
+import functools
 import inspect
 import json
 import os
@@ -32,6 +34,12 @@ from pointcloud_segmentation_attention_tpu_torch.eval import voting as tvote
 from pointcloud_segmentation_attention_tpu_torch.recipes import family_convergence as trecipe
 from pointcloud_segmentation_attention_tpu_torch.train import cls_trainer as tcls_trainer
 from pointcloud_segmentation_attention_tpu_torch.train import partseg_trainer as tps_trainer
+from pointcloud_segmentation_attention_tpu_torch.train import v1_scannet_trainer as tv1_trainer
+
+# The tiny sem_seg hierarchy of tests/test_torch_model.py, for the v1 ScanNet arm.
+TINY_SEM_SEG = dict(sa_npoints=(16, 8, 4, 2), sa_radii=(0.1, 0.2, 0.4, 0.8), sa_nsample=4,
+                    sa_mlps=((4, 8), (8, 8), (8, 8), (8, 8)),
+                    fp_mlps=((8,), (8,), (8,), (8, 8)))
 
 
 def _same_tree(a, b):
@@ -310,7 +318,8 @@ def test_part_segmentation_trainer_main_runs_on_cpu(shapenet_roots, tmp_path):
 
 
 @pytest.mark.parametrize("fn", ["run_cls_convergence", "run_partseg_convergence",
-                                "run_s3dis_convergence", "run_attention_net_convergence"])
+                                "run_s3dis_convergence", "run_attention_net_convergence",
+                                "run_v1_scannet_convergence", "run_extended"])
 def test_recipe_defaults_match_jax(fn):
     want = inspect.signature(getattr(jrecipe, fn)).parameters
     got = inspect.signature(getattr(trecipe, fn)).parameters
@@ -320,7 +329,7 @@ def test_recipe_defaults_match_jax(fn):
     assert got["device"].default == "cuda"
 
 
-def test_recipes_run_and_unported_arms_raise(tmp_path):
+def test_recipes_run_and_unported_arms_raise(tmp_path, monkeypatch):
     summary = trecipe.run_partseg_convergence(str(tmp_path), "part_seg", n_shapes_per_cat=3,
                                               n_points=128, batch_size=2, epochs=1,
                                               device="cpu")
@@ -329,12 +338,25 @@ def test_recipes_run_and_unported_arms_raise(tmp_path):
     # the corpus is cached behind its sentinel
     data = [d for d in os.listdir(tmp_path) if d.startswith("shapenet_synth")]
     assert len(data) == 1 and os.path.exists(tmp_path / data[0] / "DONE")
-    for fn in ("run_v1_scannet_convergence", "run_extended"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-            getattr(trecipe, fn)(str(tmp_path))
-    for argv in (["--extended"], ["--arms", "v1_scannet_whole"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-            trecipe.main(["--workdir", str(tmp_path), "--device", "cpu", *argv])
+    # The v1 ScanNet arm: the recipe, then main's arm, each two steps of the
+    # whole-scene dataset at the tiny hierarchy (its get_model patched).
+    tiny_v1 = dict(dataset_kind="whole", n_train_scenes=2, n_val_scenes=1, scene_points=3000,
+                   npoints=256, batch_size=2, epochs=1, max_steps=2)
+    with monkeypatch.context() as mp:
+        mp.setattr(tv1_trainer.models, "get_model", functools.partial(
+            tv1_trainer.models.get_model, **TINY_SEM_SEG))
+        mp.setattr(tv1_trainer, "MetricLogger", functools.partial(
+            tv1_trainer.MetricLogger, tensorboard=False))
+        summary = trecipe.run_v1_scannet_convergence(str(tmp_path), device="cpu", **tiny_v1)
+        assert set(summary) == set(JAX_RESULTS["v1_scannet_whole"])
+        assert summary["steps"] == 2 and summary["dataset_kind"] == "whole"
+        assert 0.0 <= summary["eval_calibrated_vox_accuracy"] <= 1.0
+        mp.setitem(trecipe.ARMS, "v1_scannet_whole",
+                   (trecipe.run_v1_scannet_convergence, tiny_v1))
+        out = trecipe.main(["--workdir", str(tmp_path), "--device", "cpu", "--arms",
+                            "v1_scannet_whole", "--skip_attention"])
+        assert set(out) == {"v1_scannet_whole"}
+        assert set(out["v1_scannet_whole"]) == set(JAX_RESULTS["v1_scannet_whole"])
     # The PointNet v1 arm runs: one epoch of the recipe's ModelNet (5 steps
     # of B8 x 256) with its T-Net orthogonality loss live.
     out = trecipe.main(["--workdir", str(tmp_path), "--device", "cpu", "--arms",

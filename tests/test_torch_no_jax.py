@@ -9,8 +9,9 @@ BN folding, device replay, device sampler and recipe modules among them,
 and the classification and part-segmentation families) and
 ``chip_smoke.py``, builds the host grid assignment with g++, trains one
 tiny step on the CPU through ``train.trainer.train`` (npz, pack store,
-resident corpus, and the sampler with ``remat='dots'``), from a synthetic
-store written and precomputed by the port itself, serves a room with a
+resident corpus, the sampler with ``remat='dots'``, and bf16 products
+with ``remat='dots'``),
+from a synthetic store written and precomputed by the port itself, serves a room with a
 BN-folded model through ``ResidentSceneServer``, trains ``cls_msg`` and
 ``part_seg_msg_one_hot`` through the family recipes, ``attention_net``
 through ``train`` (npz and the resident corpus) and serves a room with it,
@@ -55,7 +56,8 @@ for name in ("eval.resident_serving", "train.bn_fold", "train.device_replay",
              "data.shapenet_part", "eval.part_iou", "eval.voting", "train.cls_steps",
              "train.cls_trainer", "train.partseg_trainer", "recipes.family_convergence",
              "models.attention_nets", "models.pointnet1", "data.s3dis",
-             "train.s3dis_trainer", "train.v1_partseg_trainer"):
+             "train.s3dis_trainer", "train.v1_partseg_trainer", "utils.pc_util",
+             "data.scannet.v1_compat", "train.v1_scannet_trainer"):
     assert f"{port.__name__}.{name}" in modules, name
 
 import numpy as np
@@ -80,7 +82,8 @@ tiny = {"sa_npoints": [16, 8, 4, 2], "sa_radii": [0.2, 0.4, 0.8, 1.2], "sa_nsamp
         "sa_mlps": [[8, 8], [8, 8], [8, 8], [8, 8]], "fp_mlps": [[8], [8], [8], [8, 8]]}
 for tag, over in (("f32", {}), ("packed_q16", {"wire_format": "packed_q16"}),
                   ("resident", {"input": "resident"}),
-                  ("sampler", {"input": "sampler", "remat": "dots"})):
+                  ("sampler", {"input": "sampler", "remat": "dots"}),
+                  ("bf16", {"compute_dtype": "bfloat16", "remat": "dots"})):
     cfg = TrainConfig(data_root=root, precompute_dir=pre, log_dir=os.path.join(d, tag),
                       batch_size=2, n_points=64, epochs=1, n_epochs_to_val=1,
                       model_overrides=tiny, **over)

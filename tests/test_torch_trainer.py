@@ -213,7 +213,6 @@ def test_resolve_input_mode_matches_jax(case):
 
 @pytest.mark.parametrize("over,message", [
     (dict(n_devices=2), "ROADMAP Queue 1 item 7"),
-    (dict(compute_dtype="bfloat16"), "ROADMAP Queue 1 item 4"),
 ])
 def test_unported_paths_raise(tmp_path, over, message):
     cfg = TrainConfig(data_root=str(tmp_path), **over)
