@@ -106,7 +106,10 @@ Phases (each raises on failure; the script then exits non-zero):
    family-recipe -- ``run_cls_convergence`` (cls_ssg, cls_msg with normals)
                    and ``run_partseg_convergence`` (part_seg,
                    part_seg_msg_one_hot) at the sizes of the JAX package's
-                   RESULTS_family_convergence.json, reported beside it.
+                   RESULTS_family_convergence.json, reported beside it; the
+                   trained ``part_seg``'s test shapes dumped with
+                   ``evaluate_part_segmentation(ply_dir=)``, one PLY a shape
+                   read back equal to its points and restricted argmax.
    The full attention nets (``ATTENTION_NETS``, B16 x 8192 with colors and
    normals, 6 feature channels) and the PointNet v1 family:
    attention-net-model -- each of the three with seeded weights, checked as
@@ -151,6 +154,22 @@ Phases (each raises on failure; the script then exits non-zero):
                    (all seven kernels) and each step's launches; then
                    ``run_v1_scannet_convergence`` at its defaults and at the
                    vendored result's 40 epochs, beside it.
+   The raw-scan path (``data/scannet/preprocessing.py``, ``recipes/
+   realdata_drill.py``, ``viz/``):
+   realdata-drill -- ``realdata_drill.main --device cuda`` at JAX's CLI
+                   defaults, then ``run_drill`` on a ScanNet-sized room
+                   (138,778 vertices, 274,900 faces, B16 x 8192): every stage
+                   timed on its own line (fabricate, ``read_ply_mesh``,
+                   ``compute_vertex_normals``, ``collect_scannet_scene``,
+                   precompute train and val, train, predict and stitch,
+                   ground-truth export, evaluate) with its launches; launch
+                   counters zeroed just before and read just after each run,
+                   all seven kernels launched; the resolved labels and the
+                   exported ground truth equal to the fabricated ones, one
+                   stitched label per vertex, the perfect predictor's mIoU
+                   1.0; the room's labels rendered by ``rotation_animation``,
+                   ``render_ball`` (C++) equal to ``render_ball_numpy`` byte
+                   for byte on a frame's points and to the frame's PNG.
 7. kernels      -- every forward kernel against its plain PyTorch version on
                    the card at the B16 shapes (SA1-4, FP1-4) and at a large N;
                    all outputs equal bit for bit.  FPS, ball query,
@@ -198,7 +217,8 @@ Phases (each raises on failure; the script then exits non-zero):
                    and train windows' peak memory.
 10. report      -- one line per kernel (with its launches in the
                    serve-resident window, in each trainer run, in a bf16
-                   step and in a v1 ScanNet trainer step), a
+                   step, in a v1 ScanNet trainer step and in the drill's
+                   two runs), a
                    ``{"kernels": [...]}`` JSON line, the
                    card's name and power limit, and the final
                    ``{"ok": true, "device": {...}}`` line.
@@ -210,6 +230,8 @@ from __future__ import annotations
 import contextlib
 import copy
 import functools
+import glob
+import inspect
 import json
 import os
 import shutil
@@ -217,6 +239,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from typing import Optional
 
 import numpy as np
@@ -301,6 +324,23 @@ from pointcloud_segmentation_attention_tpu_torch.utils.logging import read_metri
 from pointcloud_segmentation_attention_tpu_torch.nn import PointConv  # noqa: E402
 from pointcloud_segmentation_attention_tpu_torch.utils.trace_breakdown import (  # noqa: E402
     device_breakdown,
+)
+from pointcloud_segmentation_attention_tpu_torch.data.scannet import preprocessing  # noqa: E402
+from pointcloud_segmentation_attention_tpu_torch.data.shapenet_part import (  # noqa: E402
+    PartNormalDataset,
+)
+from pointcloud_segmentation_attention_tpu_torch.eval import full_scene  # noqa: E402
+from pointcloud_segmentation_attention_tpu_torch.eval.part_iou import (  # noqa: E402
+    restrict_logits_to_category,
+)
+from pointcloud_segmentation_attention_tpu_torch.eval.voting import (  # noqa: E402
+    evaluate_part_segmentation,
+)
+from pointcloud_segmentation_attention_tpu_torch.recipes import realdata_drill  # noqa: E402
+from pointcloud_segmentation_attention_tpu_torch.viz import (  # noqa: E402
+    animations,
+    colorize_labels,
+    read_ply,
 )
 
 # Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
@@ -2423,6 +2463,11 @@ FAMILY_RECIPES = {
 }
 
 
+# run_partseg_convergence's points a shape at its defaults.
+FAMILY_RECIPE_PARTSEG_N = inspect.signature(run_partseg_convergence).parameters[
+    "n_points"].default
+
+
 def family_batch(name: str, b: int, seed: int) -> dict:
     """A batch as the family's trainer feeds it: unit-sphere-normalised
     synthetic ModelNet shapes (``data/modelnet.py``), xyz only with a
@@ -2643,9 +2688,60 @@ def phase_family_recipe(dev) -> dict:
             log(f"[family-recipe] {name}: {metric} {summary[metric]:.4f} (JAX "
                 f"RESULTS_family_convergence.json: {jax_value:.4f}) after {summary['steps']} "
                 f"steps, {epochs} epochs, in {wall:.1f} s")
+        out["part_seg_ply_dump"] = check_partseg_ply_dump(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return out
+
+
+def check_partseg_ply_dump(dev, work: str, batch: int = 4) -> dict:
+    """``evaluate_part_segmentation(..., ply_dir=)`` with the trained
+    ``part_seg`` of the family recipe (its best checkpoint, on the card) over
+    the recipe's test shapes, one vote: one PLY a shape, named
+    ``shape{index:05d}_{category}.ply``, whose points and colors, read back
+    by ``viz.read_ply``, are each shape's points and ``colorize_labels`` of
+    the category-restricted argmax of the logits the card returned."""
+    roots = glob.glob(os.path.join(work, "shapenet_synth_*"))
+    if len(roots) != 1:
+        raise AssertionError(f"family-recipe: expected one ShapeNet-part store, found {roots}")
+    ckpt = best_checkpoint(os.path.join(work, "partseg_part_seg", "checkpoints"), prefix="best")
+    state = TrainState(models.get_model("part_seg", device=dev,
+                                        generator=torch.Generator().manual_seed(0)))
+    restore_checkpoint(ckpt, state)
+    calls = []
+
+    def predict_fn(pts):
+        logits = cls_steps.partseg_eval_step(state, {"points": pts})["logits"].cpu().numpy()
+        calls.append((pts, logits))
+        return logits
+
+    ds = PartNormalDataset(roots[0], npoints=FAMILY_RECIPE_PARTSEG_N, split="test", seed=0)
+    ply_dir = os.path.join(work, "part_seg_ply")
+    t0 = time.perf_counter()
+    result = evaluate_part_segmentation(predict_fn, ds, batch_size=batch, num_votes=1,
+                                        ply_dir=ply_dir)
+    wall = time.perf_counter() - t0
+    files = sorted(os.listdir(ply_dir))
+    if len(files) != len(ds) or not np.isfinite(result["class_avg_iou"]):
+        raise AssertionError(f"part-seg PLY dump: {len(files)} files for {len(ds)} shapes, "
+                             f"{result}")
+    # One vote feeds each batch once, permuted by RandomState(0): undo it.
+    inv = np.argsort(np.random.RandomState(0).permutation(FAMILY_RECIPE_PARTSEG_N))
+    for k, name in enumerate(files):
+        cat = name[len(f"shape{k:05d}_"):-len(".ply")]
+        if not name.startswith(f"shape{k:05d}_") or cat not in ds.classes:
+            raise AssertionError(f"part-seg PLY dump: file {k} is {name}")
+        pts, logits = calls[k // batch]
+        xyz, rgb = read_ply(os.path.join(ply_dir, name))
+        want = colorize_labels(restrict_logits_to_category(logits[k % batch][inv], cat))
+        if not (np.array_equal(xyz, pts[k % batch][inv, :3]) and np.array_equal(rgb, want)):
+            raise AssertionError(f"part-seg PLY dump: {name} differs from its shape's "
+                                 "points or restricted argmax")
+    log(f"[family-recipe] evaluate_part_segmentation(ply_dir=) with the trained part_seg on "
+        f"the card: {len(files)} PLYs, one a test shape, each read back equal to its points "
+        f"and restricted-argmax colors; class-average IoU {result['class_avg_iou']:.4f}, "
+        f"{wall:.2f} s")
+    return {"files": len(files), "class_avg_iou": result["class_avg_iou"], "wall_s": wall}
 
 
 # ---- the full attention nets and the PointNet v1 family ------------------------------
@@ -3130,6 +3226,188 @@ def phase_v1_scannet(dev, n_train: int = 16, scene_points: int = 150_000, batch:
     return out
 
 
+# ---- raw ScanNet scans in, pictures out: preprocessing, the drill, viz --------------
+
+# A ScanNet-sized room (a real _vh_clean_2.ply holds ~10^5 vertices and twice
+# as many faces): n_grid 250 gives 138,778 vertices and 274,900 faces.
+DRILL_ROOM = dict(n_grid=250, npoints=8192, batch_size=16)
+DRILL_ROOM_VERTICES = 138_778
+DRILL_CLI_VERTICES = 5_120  # the CLI's defaults, n_grid 48
+DRILL_FRAMES = dict(n_frames=4, size=480)
+DRILL_SCENE = "scene9999_00"
+
+
+def _drill_stages():
+    """(module, function, stage) for every stage of ``run_drill`` timed on its
+    own; ``read_ply_mesh`` and ``compute_vertex_normals`` run inside
+    ``collect_scannet_scene``, ``precompute_cli.main`` runs for train then
+    val, ``benchmark.evaluate`` for the model then the perfect predictor."""
+    return ((realdata_drill, "fabricate_raw_scan", "fabricate"),
+            (preprocessing, "read_ply_mesh", "read_ply_mesh"),
+            (preprocessing, "compute_vertex_normals", "compute_vertex_normals"),
+            (preprocessing, "collect_scannet_scene", "collect_scannet_scene"),
+            (precompute_cli, "main", "precompute"),
+            (trainer, "train", "train"),
+            (full_scene, "generate_predictions", "predict_and_stitch"),
+            (benchmark, "export_groundtruth_from_json", "groundtruth_export"),
+            (benchmark, "evaluate", "evaluate"))
+
+
+@contextlib.contextmanager
+def timed_stages(stages, record: dict):
+    """Replace each stage's function by one that appends its seconds (after a
+    synchronise) and its kernel launches to ``record[stage]``; a generator's
+    time runs until it is exhausted."""
+    real = {}
+
+    def wrap(fn, stage):
+        def note(t0, before):
+            torch.cuda.synchronize()
+            after = kernels.launch_counts()
+            record.setdefault(stage, []).append(
+                {"s": time.perf_counter() - t0,
+                 "launches": {k: after[k] - before[k] for k in after if after[k] > before[k]}})
+
+        if inspect.isgeneratorfunction(fn):
+            def timed_gen(*args, **kwargs):
+                t0, before = time.perf_counter(), kernels.launch_counts()
+                yield from fn(*args, **kwargs)
+                note(t0, before)
+            return timed_gen
+
+        def timed(*args, **kwargs):
+            t0, before = time.perf_counter(), kernels.launch_counts()
+            out = fn(*args, **kwargs)
+            note(t0, before)
+            return out
+        return timed
+
+    for module, name, stage in stages:
+        real[(module, name)] = getattr(module, name)
+        setattr(module, name, wrap(real[(module, name)], stage))
+    try:
+        yield record
+    finally:
+        for (module, name), fn in real.items():
+            setattr(module, name, fn)
+
+
+def _png_pixels(path: str) -> np.ndarray:
+    """The (H, W, 3) pixels of an unfiltered 8-bit RGB PNG (``write_png``'s)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    pos, idat, size = 8, b"", None
+    while pos < len(data):
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            size = (int.from_bytes(body[4:8], "big"), int.from_bytes(body[:4], "big"))
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(size[0], -1)
+    if (rows[:, 0] != 0).any():
+        raise AssertionError(f"{path}: a PNG row is filtered")
+    return rows[:, 1:].reshape(size[0], size[1], 3)
+
+
+def phase_realdata_drill(dev) -> dict:
+    """The raw-scan path on the card.  (a) ``realdata_drill.main`` at JAX's CLI
+    defaults (n_grid 48, npoints 2048).  (b) ``run_drill`` on a ScanNet-sized
+    room (``DRILL_ROOM``: 138,778 vertices, 274,900 faces, B16 x 8192): each
+    stage timed on its own line, with its kernel launches; launch counters
+    zeroed just before and read just after, all seven kernels launched;
+    the drill's own checks (resolved labels and exported ground truth equal
+    to the fabricated NYU40 labels, one stitched label per vertex) and
+    ``perfect_miou == 1.0``.  (c) The room's stitched labels rendered by
+    ``rotation_animation`` (``DRILL_FRAMES``); on the first frame's projected
+    points ``render_ball`` (C++) equal to ``render_ball_numpy`` byte for byte,
+    and the first frame's PNG pixels equal to that render."""
+    work = tempfile.mkdtemp(prefix=".recipe_smoke_", dir=ROOT)
+    out = {}
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        cli = realdata_drill.main(["--device", str(dev), "--workdir",
+                                   os.path.join(work, "cli")])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        missing = [k for k in KERNEL_INFO if launches[k] == 0]
+        if missing or cli["perfect_miou"] != 1.0 or cli["n_vertices"] != DRILL_CLI_VERTICES:
+            raise AssertionError(f"realdata-drill main: {cli}, never launched {missing}")
+        out["cli"] = dict(cli, wall_s=cli_s, launches=launches)
+        log(f"[realdata-drill] main --device {dev} (n_grid 48, npoints 2048): "
+            f"{cli['n_vertices']} vertices, perfect mIoU {cli['perfect_miou']}, model mIoU "
+            f"{cli['model_miou']:.4f}, {cli_s:.2f} s; launches {json.dumps(launches)}")
+
+        room = os.path.join(work, "room")
+        stages: dict = {}
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with timed_stages(_drill_stages(), stages):
+            res = realdata_drill.run_drill(room, device=dev, **DRILL_ROOM)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        missing = [k for k in KERNEL_INFO if launches[k] == 0]
+        pred_dir = os.path.join(room, "pred")
+        points = np.load(os.path.join(pred_dir, f"{DRILL_SCENE}_points.npy"))
+        labels = np.load(os.path.join(pred_dir, f"{DRILL_SCENE}_labels.npy"))
+        if (missing or res["perfect_miou"] != 1.0 or res["n_vertices"] != DRILL_ROOM_VERTICES
+                or labels.shape != (DRILL_ROOM_VERTICES,)
+                or points.shape != (DRILL_ROOM_VERTICES, 3)):
+            raise AssertionError(f"realdata-drill room: {res}, labels {labels.shape}, "
+                                 f"never launched {missing}")
+        faces = len(preprocessing.read_ply_mesh(os.path.join(
+            room, "scans", DRILL_SCENE, f"{DRILL_SCENE}_vh_clean_2.ply"))["faces"])
+        log(f"[realdata-drill] run_drill on a ScanNet-sized room ({res['n_vertices']} "
+            f"vertices, {faces} faces; B{DRILL_ROOM['batch_size']} x "
+            f"{DRILL_ROOM['npoints']}) in {wall:.2f} s: perfect mIoU "
+            f"{res['perfect_miou']}, model mIoU {res['model_miou']:.4f} (one training step); "
+            f"launches {json.dumps(launches)}")
+        for stage, calls in stages.items():
+            for i, call in enumerate(calls):
+                tag = {"precompute": (" train", " val"),
+                       "evaluate": (" model", " perfect predictor")}.get(stage, ("", ""))[i]
+                log(f"[realdata-drill]   {stage}{tag}: {call['s']:.3f} s"
+                    + (f", launches {json.dumps(call['launches'])}" if call["launches"] else ""))
+        out["room"] = dict(res, wall_s=wall, faces=faces, launches=launches, stages=stages)
+
+        frames_dir = os.path.join(work, "frames")
+        t0 = time.perf_counter()
+        frames = animations.rotation_animation(points, labels, frames_dir, **DRILL_FRAMES)
+        frames_s = time.perf_counter() - t0
+        sel = np.random.RandomState(0).choice(len(points), 100000, False)
+        size = DRILL_FRAMES["size"]
+        screen = animations._project(points[sel].astype(np.float32), 0.0, size)
+        colors = colorize_labels(labels[sel])
+        t0 = time.perf_counter()
+        compiled = native.render_ball(screen, colors, h=size, w=size, radius=2)
+        compiled_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        plain_img = native.render_ball_numpy(screen, colors, h=size, w=size, radius=2)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if len(frames) != DRILL_FRAMES["n_frames"] or compiled.tobytes() != plain_img.tobytes():
+            raise AssertionError(f"realdata-drill render: {len(frames)} frames, C++ and plain "
+                                 "renders differ")
+        if not np.array_equal(_png_pixels(frames[0]), compiled):
+            raise AssertionError(f"realdata-drill render: {frames[0]} is not the C++ render")
+        drawn = float((compiled != 255).any(axis=2).mean())
+        out["render"] = dict(frames=len(frames), frames_s=frames_s, compiled_ms=compiled_ms,
+                             plain_ms=plain_ms, drawn_share=drawn,
+                             png_bytes=[os.path.getsize(f) for f in frames])
+        log(f"[realdata-drill] rotation_animation of the room's stitched labels: "
+            f"{len(frames)} frames of {size} px (100,000 of its points) in {frames_s:.3f} s; "
+            f"one frame: render_ball (C++) {compiled_ms:.2f} ms, render_ball_numpy "
+            f"{plain_ms:.2f} ms, equal byte for byte and to the frame's PNG; "
+            f"{drawn:.3f} of the pixels drawn")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script drives the GPU port",
@@ -3231,6 +3509,7 @@ def main() -> int:
     v1 = phase("pointnet1", phase_pointnet1, dev, batch=16)
     attnet_recipe = phase("attention-net-recipe", phase_attention_net_recipes, dev)
     v1_scannet = phase("v1-scannet", phase_v1_scannet, dev)
+    drill = phase("realdata-drill", phase_realdata_drill, dev)
     rep, geom = phase("kernels", phase_kernels, dev, batch=16, n=8192, reps=20)
     rep.update(phase("kernels-bwd", phase_kernels_bwd, dev, geom, reps=20))
     del geom
@@ -3292,6 +3571,8 @@ def main() -> int:
             f"{m}={v['launches_per_step'][name]:g}" for m, v in bf16_train.items())
         trainer_launches += "; v1 ScanNet train step: " + " ".join(
             f"{k}={v['launches_per_step'][name]:g}" for k, v in v1_scannet["runs"].items())
+        trainer_launches += (f"; realdata drill: CLI {drill['cli']['launches'][name]}, "
+                             f"room {drill['room']['launches'][name]}")
         log(f"[report] {name:21s} launches={launches:4d} (serve-resident window: "
             f"{resident['launches'][name]}; trainer window: {trainer_launches}) "
             f"{r['shape']}: "
@@ -3320,6 +3601,8 @@ def main() -> int:
                                                    for k, v in v1_scannet["runs"].items()},
             "v1_scannet_launches": {k: v["launches"][name]
                                     for k, v in v1_scannet["runs"].items()},
+            "realdata_drill_launches": {"cli": drill["cli"]["launches"][name],
+                                        "room": drill["room"]["launches"][name]},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "library_device_ms": r["library_device_ms"],
@@ -3372,6 +3655,7 @@ def main() -> int:
                                        "train_parity": bf16_parity, "train_steps": mixed,
                                        "train": bf16_train},
                    "v1_scannet": v1_scannet,
+                   "realdata_drill": drill,
                    "phase_seconds": phase_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

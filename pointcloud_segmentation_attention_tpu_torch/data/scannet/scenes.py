@@ -19,19 +19,9 @@ from pointcloud_segmentation_attention_tpu_torch.data.scannet.label_map import (
     map_labels,
     map_to_nyu40,
 )
+from pointcloud_segmentation_attention_tpu_torch.viz.palette import colorize_labels
 
 ARRAY_KINDS = ("points", "labels", "colors", "normals")
-
-# Per-class RGB of the 21 compact labels (0 unannotated = black), 0-1 floats;
-# the colors of ``color_coded`` synthetic scenes.
-_LABEL_COLORS_U8 = (np.array([
-    (0.0, 0.0, 0.0), (0.6, 0.6, 0.6), (0.6, 0.4, 0.2), (0.3, 0.6, 0.9),
-    (0.9, 0.1, 0.1), (0.1, 0.7, 0.1), (0.9, 0.5, 0.1), (0.8, 0.8, 0.1),
-    (0.5, 0.2, 0.6), (0.1, 0.8, 0.8), (0.9, 0.1, 0.6), (0.4, 0.9, 0.4),
-    (0.2, 0.2, 0.9), (0.7, 0.4, 0.4), (0.4, 0.7, 0.7), (0.7, 0.7, 0.3),
-    (0.3, 0.3, 0.7), (0.9, 0.7, 0.3), (0.3, 0.9, 0.7), (0.7, 0.3, 0.9),
-    (0.5, 0.5, 0.2),
-], np.float32) * 255).astype(np.uint8)
 
 
 def scene_path(data_root: str, kind: str, scene_name: str) -> str:
@@ -117,7 +107,7 @@ def make_synthetic_scene(n_points: int = 20000, seed: int = 0, color_coded: bool
     labels[rng.rand(n_points) < 0.15] = 0
 
     if color_coded:
-        colors = _LABEL_COLORS_U8[labels].astype(np.float32)
+        colors = colorize_labels(labels).astype(np.float32)
         colors += rng.randn(n_points, 3) * 8.0
         colors = np.clip(colors, 0, 255).astype(np.int32)
         normals = np.stack([np.cos(labels * 0.3), np.sin(labels * 0.3),

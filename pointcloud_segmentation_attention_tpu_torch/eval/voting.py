@@ -8,12 +8,17 @@ the argmax; also ``part_seg/evaluate.py`` (VOTE_NUM=12).
 """
 from __future__ import annotations
 
+import os
 from typing import Callable, Optional
 
 import numpy as np
 
 from pointcloud_segmentation_attention_tpu_torch.data import augment
-from pointcloud_segmentation_attention_tpu_torch.eval.part_iou import PartIoUAccumulator
+from pointcloud_segmentation_attention_tpu_torch.eval.part_iou import (
+    PartIoUAccumulator,
+    restrict_logits_to_category,
+)
+from pointcloud_segmentation_attention_tpu_torch.viz.ply_export import export_labeled_scene
 
 
 def vote_predict(
@@ -94,15 +99,21 @@ def evaluate_part_segmentation(
     ply_dir: Optional[str] = None,
 ) -> dict:
     """Voting part-seg evaluation with per-category IoU
-    (ref part_seg/evaluate.py).  Per-shape ply dumps (``ply_dir``) need the
-    JAX package's ``viz/``, which is not ported yet."""
-    if ply_dir is not None:
-        raise NotImplementedError("ply_dir: viz/ply_export is not ported yet "
-                                  "(ROADMAP Queue 1 item 8)")
+    (ref part_seg/evaluate.py + test.py's per-shape ply dumps when
+    ``ply_dir`` is given: ``shape{index:05d}_{category}.ply``, the points
+    colored by the category-restricted argmax)."""
     acc = PartIoUAccumulator()
     cats = sorted(dataset.classes, key=lambda c: dataset.classes[c])
+    if ply_dir is not None:
+        os.makedirs(ply_dir, exist_ok=True)
+    shape_idx = 0
     for pts, seg, cls, bsize in dataset.batches(batch_size, shuffle=False):
         logits = vote_predict_partseg(predict_fn, pts, num_votes)
         for i in range(bsize):
-            acc.add_shape(logits[i], seg[i], cats[cls[i]])
+            cat = cats[cls[i]]
+            acc.add_shape(logits[i], seg[i], cat)
+            if ply_dir is not None:
+                export_labeled_scene(os.path.join(ply_dir, f"shape{shape_idx:05d}_{cat}.ply"),
+                                     pts[i, :, :3], restrict_logits_to_category(logits[i], cat))
+            shape_idx += 1
     return acc.result()

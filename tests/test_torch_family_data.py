@@ -256,7 +256,7 @@ def test_classification_voting_matches_jax(with_normals):
     np.testing.assert_array_equal(got["per_class_accuracy"], want["per_class_accuracy"])
 
 
-def test_partseg_voting_matches_jax(shapenet_roots):
+def test_partseg_voting_matches_jax(shapenet_roots, tmp_path):
     fn = _linear_predict(50, per_point=True)
     pts = np.random.RandomState(8).randn(2, 40, 6).astype(np.float32)
     np.testing.assert_array_equal(tvote.vote_predict_partseg(fn, pts, 5, seed=3),
@@ -267,9 +267,12 @@ def test_partseg_voting_matches_jax(shapenet_roots):
     got = tvote.evaluate_part_segmentation(fn, tsp.PartNormalDataset(shapenet_roots[0], **kw),
                                            batch_size=2, num_votes=3)
     assert got == want
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        tvote.evaluate_part_segmentation(fn, tsp.PartNormalDataset(shapenet_roots[0], **kw),
-                                         ply_dir="unused")
+    # With ply_dir= both write shape{index:05d}_{category}.ply, the same bytes.
+    jvote.evaluate_part_segmentation(fn, jsp.PartNormalDataset(shapenet_roots[0], **kw),
+                                     batch_size=2, num_votes=3, ply_dir=str(tmp_path / "j"))
+    tvote.evaluate_part_segmentation(fn, tsp.PartNormalDataset(shapenet_roots[0], **kw),
+                                     batch_size=2, num_votes=3, ply_dir=str(tmp_path / "t"))
+    _same_tree(str(tmp_path / "j"), str(tmp_path / "t"))
 
 
 # ---- the trainers and the recipes ------------------------------------------------------

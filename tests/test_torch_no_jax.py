@@ -7,7 +7,8 @@ A fresh interpreter refuses, through ``sys.meta_path``, every import of
 first.  It then imports every module of the port (the resident serving,
 BN folding, device replay, device sampler and recipe modules among them,
 and the classification and part-segmentation families) and
-``chip_smoke.py``, builds the host grid assignment with g++, trains one
+``chip_smoke.py``, builds the host grid assignment and the ball-splat
+renderer with g++, trains one
 tiny step on the CPU through ``train.trainer.train`` (npz, pack store,
 resident corpus, the sampler with ``remat='dots'``, and bf16 products
 with ``remat='dots'``),
@@ -57,7 +58,9 @@ for name in ("eval.resident_serving", "train.bn_fold", "train.device_replay",
              "train.cls_trainer", "train.partseg_trainer", "recipes.family_convergence",
              "models.attention_nets", "models.pointnet1", "data.s3dis",
              "train.s3dis_trainer", "train.v1_partseg_trainer", "utils.pc_util",
-             "data.scannet.v1_compat", "train.v1_scannet_trainer"):
+             "data.scannet.v1_compat", "train.v1_scannet_trainer",
+             "data.scannet.preprocessing", "recipes.realdata_drill", "viz", "viz.palette",
+             "viz.ply_export", "viz.curves", "viz.animations"):
     assert f"{port.__name__}.{name}" in modules, name
 
 import numpy as np
@@ -67,6 +70,9 @@ four = np.array([[0, 0, 0], [1.3, 0.5, 0.1], [3.0, 2.0, 0.5], [2.8, 1.0, 0.2]], 
 cells, pids, _, _ = native.grid_chunk_assign(four)  # the g++-built library
 assert os.path.exists(native.library_path())
 assert cells.tolist() == [0, 0, 2, 3, 2] and pids.tolist() == [0, 1, 1, 2, 3]
+splat = native.render_ball(four * 4, np.full((4, 3), 9, np.uint8), h=16, w=16, radius=1)
+assert splat.tobytes() == native.render_ball_numpy(
+    four * 4, np.full((4, 3), 9, np.uint8), h=16, w=16, radius=1).tobytes()
 
 from pointcloud_segmentation_attention_tpu_torch.data.scannet import precompute, scenes
 from pointcloud_segmentation_attention_tpu_torch.train import trainer
