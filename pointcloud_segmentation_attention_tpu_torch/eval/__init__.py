@@ -15,6 +15,7 @@ from pointcloud_segmentation_attention_tpu_torch.eval.benchmark import (
 from pointcloud_segmentation_attention_tpu_torch.eval.full_scene import (
     generate_predictions,
     make_predict_fn,
+    make_sharded_predict_fn,
     predict_scene_chunks,
     scene_chunks,
 )
@@ -40,5 +41,6 @@ __all__ = ["CLASS_LABELS", "PartIoUAccumulator", "ResidentSceneServer", "VALID_C
            "evaluate_part_segmentation", "export_benchmark_txt",
            "export_groundtruth_from_json", "export_ids", "generate_predictions",
            "generate_predictions_resident", "load_ids", "make_predict_fn",
+           "make_sharded_predict_fn",
            "map_to_nyu40_for_benchmark", "predict_scene_chunks", "restrict_logits_to_category",
            "scene_chunks", "shape_iou", "vote_predict", "vote_predict_partseg"]

@@ -7,11 +7,13 @@ wire rows, the labels are argmaxed on the device and only they are copied
 back (``make_predict_fn``), and the inverse shuffle (``map_back``) restores
 vertex order.  ``generate_predictions`` does this for the scenes of a store
 and writes each scene's predictions and its ScanNet-benchmark txt.
+``make_sharded_predict_fn`` splits each chunk batch over the devices of a
+serving mesh, a model replica on each, and joins the results in order.
 """
 from __future__ import annotations
 
 import os
-from typing import Callable, Dict, Iterator, Optional, Sequence
+from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -22,6 +24,12 @@ from pointcloud_segmentation_attention_tpu_torch.data.scannet import precompute
 from pointcloud_segmentation_attention_tpu_torch.data.scannet.chunks import map_back
 from pointcloud_segmentation_attention_tpu_torch.data.wire import pack_arrays
 from pointcloud_segmentation_attention_tpu_torch.device import resolve
+from pointcloud_segmentation_attention_tpu_torch.parallel.mesh import (
+    Mesh,
+    as_mesh,
+    lane_replicas,
+    local_mesh,
+)
 from pointcloud_segmentation_attention_tpu_torch.eval.benchmark import export_benchmark_txt
 from pointcloud_segmentation_attention_tpu_torch.train.steps import (
     seg_predict_step,
@@ -62,6 +70,52 @@ def make_predict_fn(model: nn.Module, device="cuda", wire_spec=None) -> Callable
         return labels_of(seg_predict_step(model, pts, fts))
 
     return predict
+
+
+def make_sharded_predict_fn(model: nn.Module, n_devices: Optional[int] = None, wire_spec=None,
+                            return_labels: bool = False, device="cuda", mesh=None
+                            ) -> Tuple[Callable, Mesh]:
+    """``(predict, mesh)``: the counterpart of the JAX package's sharded
+    predictor.  ``mesh`` holds the first ``n_devices`` (default all) local
+    devices of ``device`` (``parallel.local_mesh``; on the CPU, that many
+    lanes), a replica of ``model`` on each.  ``predict(points (B,N,3),
+    features (B,N,K)|None)``, or with ``wire_spec`` ``predict(packed rows
+    (B, row_nbytes) u8)``, splits the B chunks into one contiguous share a
+    device (B must be a multiple of the mesh size), queues every share's
+    copy, eval forward and argmax before it fetches any, and returns the
+    shares joined in order: (B, N, C) float32 logits, or with
+    ``return_labels`` (B, N) labels (u8 when the classes fit).  No
+    collectives: each device's share is independent.  ``mesh`` (a
+    ``parallel.Mesh`` or a list of devices, which may repeat one) replaces
+    ``n_devices`` and ``device``."""
+    mesh = as_mesh(mesh) if mesh is not None else local_mesh(n_devices, device)
+    replicas = lane_replicas(model.to(mesh.device), mesh)
+    lanes = list(mesh.devices.flat)
+
+    def run(share, replica, dev):
+        if wire_spec is not None:
+            logits = seg_predict_step_packed(replica, share[0], wire_spec=wire_spec)
+        else:
+            pts, fts = (None if a is None else
+                        torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+                        for a in share)
+            logits = seg_predict_step(replica, pts, fts)
+        if not return_labels:
+            return logits
+        return logits.argmax(dim=-1).to(torch.uint8 if logits.shape[-1] <= 255 else torch.int32)
+
+    def predict(points: np.ndarray, features: Optional[np.ndarray] = None) -> np.ndarray:
+        n = len(points)
+        if n % len(lanes):
+            raise ValueError(f"a batch of {n} chunks does not divide over {len(lanes)} devices")
+        b = n // len(lanes)
+        queued = [run((points[i * b:(i + 1) * b],
+                       None if features is None else features[i * b:(i + 1) * b]),
+                      replica, dev)
+                  for i, (replica, dev) in enumerate(zip(replicas, lanes))]
+        return np.concatenate([q.cpu().numpy() for q in queued])
+
+    return predict, mesh
 
 
 def _padded(a: np.ndarray, batch_size: int) -> np.ndarray:

@@ -25,11 +25,15 @@ fed the same chunks.
 
 The port's own copy of the JAX package's ``eval/resident_serving.py``: the
 host twins and the packed layouts give the same bytes and chunks, the card
-side gives the same chunks as its ``make_scene_chunker``.  ``mesh=`` (scene
-per device) is not ported yet.
+side gives the same chunks as its ``make_scene_chunker``.  ``mesh=`` serves
+a scene per device (``make_scene_program_mesh``): groups of one scene a
+lane share a bucket, each lane runs the single-device program on its own
+device with its own model replica, and there are no collectives, so the
+labels equal the single-device server's bit for bit.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from collections import deque
 from typing import Dict, Iterator, Optional, Sequence, Tuple
@@ -49,6 +53,7 @@ from pointcloud_segmentation_attention_tpu_torch.data.scannet.scenes import load
 from pointcloud_segmentation_attention_tpu_torch.data.wire import exact_div
 from pointcloud_segmentation_attention_tpu_torch.device import resolve
 from pointcloud_segmentation_attention_tpu_torch.eval.benchmark import export_benchmark_txt
+from pointcloud_segmentation_attention_tpu_torch.parallel.mesh import as_mesh, lane_replicas
 from pointcloud_segmentation_attention_tpu_torch.train.steps import seg_predict_step
 
 _HASH_MULT = np.uint32(2654435761)      # Knuth multiplicative
@@ -522,6 +527,41 @@ def make_scene_program_group(model: nn.Module, layout: SceneLayout, x_cap: int, 
     return multi
 
 
+class _LanePrograms:
+    """The scene-per-device program: ``(bufs, ns) -> ([labels (n_pad,) u8],
+    [n_chunks])``, lane i running ``lanes[i]`` (a ``make_scene_program``
+    on its device) on ``bufs[i]``, one lane after another from the calling
+    thread (each lane's work queues on its device's current stream)."""
+
+    def __init__(self, lanes, devices):
+        self.lanes = lanes
+        self.devices = devices
+
+    def __call__(self, bufs, ns):
+        out = []
+        for lane, dev, buf, n in zip(self.lanes, self.devices, bufs, ns):
+            with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+                out.append(lane(buf, int(n)))
+        return [o[0] for o in out], [o[1] for o in out]
+
+
+def make_scene_program_mesh(model: nn.Module, layout: SceneLayout, x_cap: int, nb: int,
+                            batch_size: int, npoints: int, mesh, seed: int = 0,
+                            chunk_size: float = CHUNK_SIZE, margin: float = CONTEXT_MARGIN,
+                            replicas=None):
+    """Scene-per-device serving over a 1-D serving mesh (a
+    ``parallel.Mesh`` or a list of devices): ``(bufs, ns) -> ([(n_pad,) u8
+    labels], [n_chunks])``, lane i running the whole per-scene program on
+    its scene's buffer (on ``mesh.devices[i]``) with a replica of ``model``
+    there (``replicas``, default ``parallel.lane_replicas``).  Zero
+    collectives: each lane's labels equal ``make_scene_program``'s."""
+    mesh = as_mesh(mesh)
+    replicas = replicas or lane_replicas(model, mesh)
+    lanes = [make_scene_program(r, layout, x_cap, nb, batch_size, npoints, seed, chunk_size,
+                                margin) for r in replicas]
+    return _LanePrograms(lanes, list(mesh.devices.flat))
+
+
 # ---------------------------------------------------------------------------
 # The server
 # ---------------------------------------------------------------------------
@@ -545,7 +585,13 @@ class ResidentSceneServer:
 
     ``group_size``: batch this many scenes per upload, call and fetch
     (``make_scene_program_group``); bit-identical to the ungrouped path.
-    ``mesh=`` (a scene per device) is not ported and raises.
+
+    ``mesh``: a 1-D serving mesh (a ``parallel.Mesh`` or a list of devices,
+    which may repeat one) serves a scene per device: groups of
+    ``len(mesh)`` scenes are packed to a common bucket, each uploaded to its
+    lane's device and run by ``make_scene_program_mesh``, bit-identical to
+    the single-device path.  A one-device mesh is the single-device path on
+    that device; ``mesh`` and ``group_size > 1`` are exclusive.
     """
 
     def __init__(self, model: nn.Module, npoints: int, batch_size: int = 16,
@@ -555,14 +601,22 @@ class ResidentSceneServer:
                  margin: float = CONTEXT_MARGIN, mesh=None, group_size: int = 1,
                  device="cuda"):
         check_grid_geometry(chunk_size, margin)
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: serving a scene per device is not ported yet (ROADMAP Queue 1 "
-                "item 7)")
+        mesh = as_mesh(mesh)
+        if mesh is not None and mesh.devices.ndim != 1:
+            raise ValueError(
+                f"serving mesh must be 1-D (scene-per-device); got axes {mesh.axis_names} — "
+                "serving shards scenes, so build a 1-D mesh over the serving devices")
+        if mesh is not None and mesh.size == 1:
+            device, mesh = mesh.device, None  # a one-device mesh is the single-device path
+        if mesh is not None and group_size > 1:
+            raise ValueError("mesh and group_size are exclusive: the mesh path already "
+                             "groups one scene per device")
         SceneLayout(layout, pad_multiple)  # refuses an unknown layout here
-        self.device = resolve(device)
+        self.mesh = mesh
+        self.device = resolve(mesh.device if mesh is not None else device)
         self.model = model.to(self.device)
-        self.n_lanes = max(1, int(group_size))
+        self._replicas = lane_replicas(self.model, mesh) if mesh is not None else None
+        self.n_lanes = mesh.size if mesh is not None else max(1, int(group_size))
         self.npoints = npoints
         self.batch_size = batch_size
         self.layout_kind = layout
@@ -575,7 +629,7 @@ class ResidentSceneServer:
         self.margin = margin
         self._programs = {}
         self._cuda = self.device.type == "cuda"
-        self._upload_stream = torch.cuda.Stream(self.device) if self._cuda else None
+        self._upload_streams = {}
 
     def _n_pad(self, n: int) -> int:
         # Linear buckets: the padding (and the upload) grows by at most
@@ -595,35 +649,44 @@ class ResidentSceneServer:
     def _program(self, n_pad: int, x_cap: int, nb: int, group: bool):
         key = (n_pad, x_cap, nb, group)
         if key not in self._programs:
-            make = make_scene_program_group if group else make_scene_program
-            self._programs[key] = make(self.model, self._layout(n_pad), x_cap, nb,
-                                       self.batch_size, self.npoints, self.seed,
-                                       chunk_size=self.chunk_size, margin=self.margin)
+            args = (self.model, self._layout(n_pad), x_cap, nb, self.batch_size, self.npoints)
+            kw = dict(seed=self.seed, chunk_size=self.chunk_size, margin=self.margin)
+            if self.mesh is not None:
+                program = make_scene_program_mesh(*args, self.mesh, replicas=self._replicas, **kw)
+            else:
+                program = (make_scene_program_group if group else make_scene_program)(*args, **kw)
+            self._programs[key] = program
         return self._programs[key]
 
-    def _upload(self, buf: np.ndarray):
-        """(device buffer, event its copy completes on, or None on the CPU).
-        On a card the copy runs from pinned memory on the upload stream, so
-        it overlaps the compute stream's work."""
+    def _upload(self, buf: np.ndarray, device: Optional[torch.device] = None):
+        """(buffer on ``device`` (default the server's), event its copy
+        completes on, or None on the CPU).  On a card the copy runs from
+        pinned memory on the device's upload stream, so it overlaps the
+        compute stream's work."""
+        device = device or self.device
         host = torch.from_numpy(buf)
         if not self._cuda:
-            return host.to(self.device), None
+            return host.to(device), None
         host = host.pin_memory()
-        with torch.cuda.stream(self._upload_stream):
-            dbuf = host.to(self.device, non_blocking=True)
+        if device not in self._upload_streams:
+            self._upload_streams[device] = torch.cuda.Stream(device)
+        stream = self._upload_streams[device]
+        with torch.cuda.stream(stream):
+            dbuf = host.to(device, non_blocking=True)
             ready = torch.cuda.Event()
-            ready.record(self._upload_stream)
+            ready.record(stream)
         return dbuf, ready
 
     def _on_compute_stream(self, dbuf: torch.Tensor, ready) -> None:
         if ready is not None:
-            stream = torch.cuda.current_stream(self.device)
+            stream = torch.cuda.current_stream(dbuf.device)
             stream.wait_event(ready)
             dbuf.record_stream(stream)  # the allocator must not reuse it early
 
     def _to_host(self, *tensors: torch.Tensor):
         """Queue copies of ``tensors`` into pinned host memory; returns the
-        host tensors and the event they complete on (None on the CPU)."""
+        host tensors and the events they complete on (one per device; None
+        on the CPU)."""
         if not self._cuda:
             return tensors, None
         out = []
@@ -631,8 +694,11 @@ class ResidentSceneServer:
             h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             h.copy_(t, non_blocking=True)
             out.append(h)
-        done = torch.cuda.Event()
-        done.record()
+        done = []
+        for dev in dict.fromkeys(t.device for t in tensors):
+            with torch.cuda.device(dev):
+                done.append(torch.cuda.Event())
+                done[-1].record()
         return tuple(out), done
 
     def _stage(self, scene: Dict[str, np.ndarray]):
@@ -669,8 +735,8 @@ class ResidentSceneServer:
         shortfall raises, it never stitches label 0 into the chunks left
         out."""
         name, n, labels, n_chunks, done, cap = computed
-        if done is not None:
-            done.synchronize()
+        for event in done or ():
+            event.synchronize()
         nc = int(n_chunks)
         if nc > cap:
             raise RuntimeError(
@@ -684,7 +750,8 @@ class ResidentSceneServer:
     def _stage_group(self, group):
         """Pack ``<= n_lanes`` scenes at a common bucket (the chunks do not
         depend on n_pad or x_cap) and upload them as one (K, nbytes)
-        buffer; a short group is filled with copies of its last buffer."""
+        buffer, or under a mesh each to its lane's device; a short group is
+        filled with copies of its last buffer."""
         names = [s.get("scene_name") for s in group]
         pts = [np.asarray(s["points"], np.float32) for s in group]
         ns = [len(p) for p in pts]
@@ -697,24 +764,35 @@ class ResidentSceneServer:
                                         self.chunk_size, self.margin)
                             for b, n in zip(packed, ns)))
         n_fill = self.n_lanes - len(group)
-        dbufs, ready = self._upload(np.stack(packed + [packed[-1]] * n_fill))
+        packed += [packed[-1]] * n_fill
+        if self.mesh is not None:
+            dbufs, ready = zip(*(self._upload(b, d) for b, d in zip(packed, self.mesh.devices)))
+        else:
+            dbufs, ready = self._upload(np.stack(packed))
         return (names, ns + [ns[-1]] * n_fill, len(group), n_pad,
                 _bucket(x, 4 * self.batch_size), x, dbufs, ready)
 
     def _compute_group(self, staged):
         names, ns, n_real, n_pad, x_cap, x, dbufs, ready = staged
-        self._on_compute_stream(dbufs, ready)
         nb = -(-x // self.batch_size)
-        labels, n_chunks = self._program(n_pad, x_cap, nb, True)(dbufs, ns)
-        (labels, n_chunks), done = self._to_host(labels, n_chunks)
+        program = self._program(n_pad, x_cap, nb, True)
+        if self.mesh is not None:
+            for b, r in zip(dbufs, ready):
+                self._on_compute_stream(b, r)
+            labels, n_chunks = program(dbufs, ns)
+            host, done = self._to_host(*labels, *n_chunks)
+            labels, n_chunks = host[:self.n_lanes], host[self.n_lanes:]
+        else:
+            self._on_compute_stream(dbufs, ready)
+            (labels, n_chunks), done = self._to_host(*program(dbufs, ns))
         return names, ns, n_real, labels, n_chunks, done, nb * self.batch_size
 
     def _fetch_group(self, computed):
         names, ns, n_real, labels, n_chunks, done, cap = computed
-        if done is not None:
-            done.synchronize()
-        ncs = n_chunks.numpy()
-        labs = labels.numpy()
+        for event in done or ():
+            event.synchronize()
+        ncs = np.stack([np.asarray(t) for t in n_chunks]).reshape(-1)
+        labs = [np.asarray(t) for t in labels]
         for i in range(n_real):
             if int(ncs[i]) > cap:
                 raise RuntimeError(
@@ -722,7 +800,7 @@ class ResidentSceneServer:
                     f"{names[i]!r} but only {cap} predict slots were scheduled: the q16 "
                     "host/card chunk-count slack was exceeded; raise it in "
                     "ResidentSceneServer._slots")
-            yield names[i], labs[i, :ns[i]].astype(np.int32)
+            yield names[i], labs[i][:ns[i]].astype(np.int32)
 
     # -- public API ------------------------------------------------------
 

@@ -7,8 +7,10 @@ JAX package's C++ ``native_ops.cpp:grid_chunk_assign`` and
 which is what the JAX package runs wherever ``g++`` exists.  Both sources
 are built with ``g++ -O3 -shared -fPIC`` at first use into one library in
 the package's ``_build/`` directory, named by a hash of the sources and
-flags, and loaded with ``ctypes``.  A failed build raises with the
-compiler's output: there is no quiet fallback.
+flags, and loaded with ``ctypes``; processes that build at once take
+``build_lock`` on that directory, so one compiles and the others load its
+library.  A failed build raises with the compiler's output: there
+is no quiet fallback.
 
 ``grid_chunk_assign_numpy`` is the grid assignment's plain version and the
 tests' oracle: the same float32 arithmetic step for step (``x = p - min``,
@@ -24,7 +26,9 @@ disagrees with its C++; the port follows the C++.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import subprocess
@@ -43,6 +47,21 @@ _lock = threading.Lock()
 _lib = None
 
 
+@contextlib.contextmanager
+def build_lock(build_dir: str):
+    """An exclusive lock on ``build_dir/.lock`` across processes (``flock``),
+    held while a library is looked for and, if missing, compiled: processes
+    that build at once (the ranks of a data-parallel run) compile once.
+    Both this library and ``ops.cuda``'s kernels take it."""
+    os.makedirs(build_dir, exist_ok=True)
+    with open(os.path.join(build_dir, ".lock"), "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def library_path() -> str:
     digest = hashlib.sha256(" ".join(GXX_FLAGS).encode())
     for source in SOURCES:  # every source linked into the library
@@ -50,6 +69,19 @@ def library_path() -> str:
         with open(source, "rb") as f:
             digest.update(f.read())
     return os.path.join(BUILD_DIR, f"libpsa_native_{digest.hexdigest()[:16]}.so")
+
+
+def _compile(so_path: str) -> None:
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        tmp_so = os.path.join(tmp, "lib.so")
+        try:
+            proc = subprocess.run(["g++", *GXX_FLAGS, "-o", tmp_so, *SOURCES],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        except FileNotFoundError as e:
+            raise RuntimeError(f"g++ not found; it builds {SOURCES}") from e
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed to build {SOURCES}:\n{proc.stdout}")
+        os.replace(tmp_so, so_path)
 
 
 def build() -> ctypes.CDLL:
@@ -60,19 +92,9 @@ def build() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         so_path = library_path()
-        if not os.path.exists(so_path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-                tmp_so = os.path.join(tmp, "lib.so")
-                try:
-                    proc = subprocess.run(["g++", *GXX_FLAGS, "-o", tmp_so, *SOURCES],
-                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                          text=True)
-                except FileNotFoundError as e:
-                    raise RuntimeError(f"g++ not found; it builds {SOURCES}") from e
-                if proc.returncode != 0:
-                    raise RuntimeError(f"g++ failed to build {SOURCES}:\n{proc.stdout}")
-                os.replace(tmp_so, so_path)
+        with build_lock(BUILD_DIR):
+            if not os.path.exists(so_path):
+                _compile(so_path)
         lib = ctypes.CDLL(so_path)
         fn = lib.psa_grid_chunk_assign
         fn.restype = ctypes.c_int64

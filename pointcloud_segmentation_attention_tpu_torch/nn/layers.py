@@ -6,6 +6,11 @@ Counterparts of the JAX package's ``nn/layers.py``.  Kernels keep Flax's
 Parameters are created by ``reset_parameters(generator)`` from an explicit
 ``torch.Generator``.
 
+Data parallelism: inside a ``parallel.data_parallel`` step a train-mode
+``ScheduledBatchNorm`` takes its statistics over the global batch
+(``_SyncBatchNorm``) and ``Dropout`` draws its mask for the global batch and
+keeps this rank's rows, so every rank computes what one device computes.
+
 Mixed precision: ``PointConv`` and ``Dense`` take a ``compute_dtype``.
 Parameters stay float32; under ``torch.bfloat16`` the product takes both
 operands rounded to bf16 and returns float32 (``mixed_matmul``, JAX's
@@ -21,6 +26,9 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+
+from pointcloud_segmentation_attention_tpu_torch.parallel import collectives
+from pointcloud_segmentation_attention_tpu_torch.parallel.mesh import active_mesh, local_rows
 
 # Where a train-mode BN sends its running-statistics update on this thread:
 # None applies it in place; a list records (bn, batch mean, batch var,
@@ -49,6 +57,42 @@ def apply_bn_updates(records: List[Tuple["ScheduledBatchNorm", torch.Tensor, tor
         bn._update(mean, var, momentum)
 
 
+class _SyncBatchNorm(torch.autograd.Function):
+    """Train-mode BN over the global batch of a process group, with JAX's
+    two passes: an all-reduce of the per-channel sum and the row count gives
+    the mean, then one of the centred sum of squares the (biased) variance.
+    The backward all-reduces ``sum(dy)`` and ``sum(dy * xhat)``; the scale
+    and bias gradients it returns are this rank's sums, which the step's
+    gradient all-reduce adds up.  Returns ``(y, mean, var)``."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, group):
+        c = x.shape[-1]
+        rows = x.reshape(-1, c)
+        stats = torch.cat([rows.sum(dim=0), rows.new_full((1,), float(rows.shape[0]))])
+        collectives.all_reduce(stats, group)
+        count = stats[c]
+        mean = stats[:c] / count
+        d = rows - mean
+        var = collectives.all_reduce((d * d).sum(dim=0), group) / count
+        invstd = torch.rsqrt(var + eps)
+        ctx.save_for_backward(d, invstd, scale, count)
+        ctx.group = group  # autograd may run the backward on another thread
+        ctx.mark_non_differentiable(mean, var)
+        return (d * (invstd * scale) + bias).view_as(x), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        d, invstd, scale, count = ctx.saved_tensors
+        c = d.shape[-1]
+        g = dy.reshape(-1, c)
+        xhat = d * invstd
+        local = torch.cat([g.sum(dim=0), (g * xhat).sum(dim=0)])
+        sums = collectives.all_reduce(local.clone(), ctx.group) / count
+        dx = (g - sums[:c] - xhat * sums[c:]) * (invstd * scale)
+        return dx.view_as(dy), local[c:], local[:c], None, None
+
+
 class ScheduledBatchNorm(nn.Module):
     """BatchNorm over every axis but the last, with the EMA decay passed per
     call.  Stock ``nn.BatchNorm`` differs on three counts, all kept here:
@@ -56,7 +100,9 @@ class ScheduledBatchNorm(nn.Module):
     the running variance takes the biased batch variance.  Eval mode computes
     ``(x - mean) * (rsqrt(var + eps) * scale) + bias``.  Inside
     ``bn_updates(sink)`` the running-statistics update is recorded or
-    skipped instead of applied (activation checkpointing).
+    skipped instead of applied (activation checkpointing).  Under an active
+    data-parallel mesh the train-mode statistics, and so the running
+    averages, are the global batch's (``_SyncBatchNorm``).
     """
 
     def __init__(self, channels: int, eps: float = 1e-3):
@@ -69,18 +115,28 @@ class ScheduledBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, momentum: float = 0.9) -> torch.Tensor:
         if self.training:
+            mesh = active_mesh()
+            if mesh is not None:
+                y, mean, var = _SyncBatchNorm.apply(x, self.scale, self.bias, self.eps,
+                                                    mesh.group)
+                self._record(mean, var, momentum)
+                return y
             axes = tuple(range(x.dim() - 1))
             mean = x.mean(dim=axes)
             var = x.var(dim=axes, unbiased=False)
-            sink = getattr(_bn_sink, "value", None)
-            if sink is None:
-                self._update(mean, var, momentum)
-            elif sink is not _SKIP:
-                sink.append((self, mean.detach(), var.detach(), momentum))
+            self._record(mean, var, momentum)
         else:
             mean, var = self.mean, self.var
         inv = torch.rsqrt(var + self.eps) * self.scale
         return (x - mean) * inv + self.bias
+
+    def _record(self, mean: torch.Tensor, var: torch.Tensor, momentum: float) -> None:
+        """Apply, record or skip the running-statistics update (``bn_updates``)."""
+        sink = getattr(_bn_sink, "value", None)
+        if sink is None:
+            self._update(mean, var, momentum)
+        elif sink is not _SKIP:
+            sink.append((self, mean.detach(), var.detach(), momentum))
 
     def _update(self, mean: torch.Tensor, var: torch.Tensor, momentum: float) -> None:
         with torch.no_grad():
@@ -220,7 +276,8 @@ class Dense(nn.Module):
 
 class Dropout(nn.Module):
     """Inverted dropout; identity in eval mode.  Draws its mask from the
-    ``generator`` passed to ``forward``."""
+    ``generator`` passed to ``forward``; under a data-parallel mesh, the
+    global batch's mask, of which it keeps this rank's rows."""
 
     def __init__(self, rate: float = 0.5):
         super().__init__()
@@ -231,7 +288,8 @@ class Dropout(nn.Module):
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        u = torch.rand(x.shape, generator=generator, device=x.device)
+        u = local_rows(lambda shape: torch.rand(shape, generator=generator, device=x.device),
+                       x.shape)
         return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 

@@ -4,7 +4,9 @@ The sources live in the package's ``csrc/``.  ``build()`` compiles each
 source with ``nvcc`` (all started together), links them into one shared
 library with a plain C interface under the package's ``_build/`` directory,
 and loads it; the library is named by a hash of the sources and flags, so a
-changed source is rebuilt and an unchanged one is reused.  Nothing is built
+changed source is rebuilt and an unchanged one is reused.  Processes that
+build at once (the ranks of a data-parallel run) take a file lock in
+``_build/`` first: one compiles, the others wait and load its library.  Nothing is built
 or imported when this module is imported: the CPU-only test machine never
 reaches ``build()``.
 
@@ -37,6 +39,8 @@ import threading
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+
+from pointcloud_segmentation_attention_tpu_torch.native import build_lock
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
@@ -146,8 +150,9 @@ def build(verbose: bool = False) -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         so_path = library_path()
-        if not os.path.exists(so_path):
-            build_log = _compile(so_path, verbose)
+        with build_lock(BUILD_DIR):
+            if not os.path.exists(so_path):
+                build_log = _compile(so_path, verbose)
         lib = ctypes.CDLL(so_path)
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

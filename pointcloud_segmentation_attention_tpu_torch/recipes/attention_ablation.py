@@ -27,7 +27,7 @@ from pointcloud_segmentation_attention_tpu_torch.data.scannet.scenes import (
 )
 from pointcloud_segmentation_attention_tpu_torch.device import resolve
 from pointcloud_segmentation_attention_tpu_torch.recipes.common import (
-    refuse_devices,
+    check_devices,
     restore_state,
     stitched_miou,
 )
@@ -76,7 +76,7 @@ def run_attention_ablation(
     third of the train split) for ``max_steps`` and evaluate each; returns
     {'arms': {arm: metrics}, the ordering, the reference ordering, config}."""
     dev = resolve(device)
-    refuse_devices(n_devices)
+    check_devices(n_devices, batch_size, dev)
     data_root = os.path.join(workdir, "scannet_synth")
     if not os.path.exists(os.path.join(data_root, "splits")):
         # geometry_coded: the arms see xyz only, so labels must follow from

@@ -8,6 +8,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from pointcloud_segmentation_attention_tpu_torch import parallel
 from pointcloud_segmentation_attention_tpu_torch.data.scannet.chunks import CONTEXT_MARGIN
 from pointcloud_segmentation_attention_tpu_torch.data.scannet.scenes import load_scene
 from pointcloud_segmentation_attention_tpu_torch.eval import benchmark
@@ -23,12 +24,12 @@ from pointcloud_segmentation_attention_tpu_torch.train.train_state import TrainS
 from pointcloud_segmentation_attention_tpu_torch.utils.config import TrainConfig
 
 
-def refuse_devices(n_devices: Optional[int]) -> None:
-    """Recipes train on one device, as the trainer does."""
+def check_devices(n_devices: Optional[int], batch_size: int, device) -> None:
+    """Refuse, before any data is written, the data-parallel world that the
+    trainer would refuse (more ranks than CUDA devices, a batch that does
+    not divide)."""
     if n_devices not in (None, 1):
-        raise NotImplementedError(
-            f"n_devices={n_devices}: training on more than one device is not ported yet "
-            "(ROADMAP Queue 1 item 7)")
+        parallel.check_world(n_devices, batch_size, device)
 
 
 def restore_state(config: TrainConfig, device, first: str = "best",

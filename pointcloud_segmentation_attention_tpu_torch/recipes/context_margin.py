@@ -23,7 +23,7 @@ from pointcloud_segmentation_attention_tpu_torch.data.scannet.scenes import (
 )
 from pointcloud_segmentation_attention_tpu_torch.device import resolve
 from pointcloud_segmentation_attention_tpu_torch.recipes.common import (
-    refuse_devices,
+    check_devices,
     restore_state,
     stitched_miou,
 )
@@ -52,7 +52,7 @@ def run_context_margin(
     the offline mIoU by margin, the last minus the first, the best val
     mIoU and the reference numbers."""
     dev = resolve(device)
-    refuse_devices(n_devices)
+    check_devices(n_devices, batch_size, dev)
     data_root = os.path.join(workdir, "scannet_synth")
     if not os.path.exists(os.path.join(data_root, "splits")):
         write_synthetic_dataset(data_root, n_train=n_train_scenes, n_val=n_val_scenes,

@@ -26,7 +26,7 @@ from pointcloud_segmentation_attention_tpu_torch.data.scannet.scenes import (
 )
 from pointcloud_segmentation_attention_tpu_torch.device import resolve
 from pointcloud_segmentation_attention_tpu_torch.recipes.common import (
-    refuse_devices,
+    check_devices,
     restore_state,
     stitched_miou,
 )
@@ -64,7 +64,7 @@ def run_diversity_matched(
     """Both arms within ``budget_s`` seconds each (the replay arm's
     precompute included); returns per-arm steps, seconds and mIoUs."""
     dev = resolve(device)
-    refuse_devices(n_devices)
+    check_devices(n_devices, batch_size, dev)
     workdir = workdir or tempfile.mkdtemp(prefix="psa_div_matched_")
     data_root = os.path.join(workdir, "scannet_synth")
     write_synthetic_dataset(data_root, n_train=n_train_scenes, n_val=n_val_scenes,

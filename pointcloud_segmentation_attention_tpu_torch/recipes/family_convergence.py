@@ -43,6 +43,7 @@ from pointcloud_segmentation_attention_tpu_torch.data.shapenet_part import (
 from pointcloud_segmentation_attention_tpu_torch.recipes.synthetic_convergence import (
     run_synthetic_convergence,
 )
+from pointcloud_segmentation_attention_tpu_torch.recipes.common import check_devices
 from pointcloud_segmentation_attention_tpu_torch.train import trainer
 from pointcloud_segmentation_attention_tpu_torch.train.cls_trainer import train_classification
 from pointcloud_segmentation_attention_tpu_torch.train.partseg_trainer import (
@@ -87,6 +88,7 @@ def run_cls_convergence(
     voting; the summary's ``best_accuracy`` against ``chance_accuracy``
     (1 / num_classes) shows learning.  ``normal_channel`` feeds the normals
     as features (the reference's '+normals' MSG configuration)."""
+    check_devices(n_devices, batch_size, device)
     # The cache key carries every generation parameter.
     data_root = os.path.join(
         workdir, f"modelnet_synth_c{num_classes}_s{shapes_per_class}"
@@ -120,6 +122,7 @@ def run_partseg_convergence(
 ) -> dict:
     """Train a part segmenter on a synthetic ShapeNet-part and evaluate the
     per-category part IoU (``best_class_avg_iou``)."""
+    check_devices(n_devices, batch_size, device)
     data_root = os.path.join(
         workdir, f"shapenet_synth_s{n_shapes_per_cat}_n{max(n_points, 256)}_{seed}")
     if not _cache_complete(data_root):
@@ -163,6 +166,7 @@ def run_s3dis_convergence(
     (``best_miou``).  Only floor, ceiling and wall are predictable from the
     geometry (the furniture blobs' classes are random per room), so the
     target is an mIoU well above chance from those classes."""
+    check_devices(n_devices, batch_size, device)
     rooms = [make_synthetic_room(room_points, seed=seed + i)
              for i in range(n_train_rooms + n_test_rooms)]
     summary = train_s3dis(rooms[:n_train_rooms], rooms[n_train_rooms:], num_point=num_point,
@@ -194,6 +198,7 @@ def run_v1_scannet_convergence(
     surface-voxel accuracy.  The rooms are geometry-coded: the v1 trainer
     feeds xyz only, so their blob labels must be predictable from the
     geometry for the held-out mIoU to show learning."""
+    check_devices(n_devices, batch_size, device)
     data_root = os.path.join(
         workdir, f"scannet_v1g_{n_train_scenes}_{n_val_scenes}_{scene_points}_{seed}")
     if not _cache_complete(data_root):
@@ -230,6 +235,7 @@ def run_attention_net_convergence(
     ``pooling_attention_net``) through ``train(config)`` with the
     on-device sampler, its validation and best checkpoint: the trainer's
     summary (``final_train_loss``, ``best_val_miou``, ``final_step``)."""
+    check_devices(n_devices, batch_size, device)
     data_root = os.path.join(
         workdir, f"scannet_attnet_{n_train_scenes}_{n_val_scenes}_{scene_points}_{seed}")
     if not _cache_complete(data_root):

@@ -221,14 +221,13 @@ def run_drill(workdir: str, n_grid: int = 24, npoints: int = 512,
 
     # 5. full-scene stitched prediction + benchmark txt.  Restore the
     # periodic checkpoint (the best-val one may not exist after one step:
-    # an untrained model's val mIoU can be NaN).  On one device the JAX
-    # package's make_sharded_predict_fn(state, n_devices=1) is this
-    # predict function.
+    # an untrained model's val mIoU can be NaN).
     state = trainer.make_eval_state(cfg, device=device)
     ckpt = latest_checkpoint(cfg.ckpt_dir) or best_checkpoint(cfg.ckpt_dir)
     _check(ckpt is not None, "training produced no checkpoint")
     state = restore_checkpoint(ckpt, state)
-    predict_fn = full_scene.make_predict_fn(state.model, device=device)
+    predict_fn, _ = full_scene.make_sharded_predict_fn(state.model, n_devices=1,
+                                                       return_labels=True, device=device)
     out_dir = os.path.join(workdir, "pred")
     results = list(full_scene.generate_predictions(
         predict_fn, data_root, [scene_name], out_dir,

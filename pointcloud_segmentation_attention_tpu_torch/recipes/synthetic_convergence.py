@@ -33,9 +33,9 @@ from pointcloud_segmentation_attention_tpu_torch.device import resolve
 from pointcloud_segmentation_attention_tpu_torch.eval import benchmark
 from pointcloud_segmentation_attention_tpu_torch.eval.full_scene import (
     generate_predictions,
-    make_predict_fn,
+    make_sharded_predict_fn,
 )
-from pointcloud_segmentation_attention_tpu_torch.recipes.common import refuse_devices
+from pointcloud_segmentation_attention_tpu_torch.recipes.common import check_devices
 from pointcloud_segmentation_attention_tpu_torch.train import trainer
 from pointcloud_segmentation_attention_tpu_torch.train.checkpoints import (
     best_checkpoint,
@@ -70,7 +70,7 @@ def run_synthetic_convergence(
     metric on val chunks) and ``offline_mean_iou`` (the benchmark evaluator
     on stitched whole scenes), with the per-class IoUs."""
     dev = resolve(device)
-    refuse_devices(n_devices)
+    check_devices(n_devices, batch_size, dev)
     data_root = os.path.join(workdir, "scannet_synth")
     pred_dir = os.path.join(workdir, "predictions")
     gt_dir = os.path.join(workdir, "groundtruth")
@@ -98,7 +98,8 @@ def run_synthetic_convergence(
         raise RuntimeError("training saved no best checkpoint")
     state = trainer.make_eval_state(config, device=dev)
     restore_checkpoint(ckpt, state)
-    predict_fn = make_predict_fn(state.model, device=dev)
+    predict_fn, _ = make_sharded_predict_fn(state.model, n_devices, return_labels=True,
+                                            device=dev)
     pred_files = [
         os.path.join(pred_dir, f"{res['scene_name']}.txt")
         for res in generate_predictions(predict_fn, data_root, val_scenes, pred_dir,

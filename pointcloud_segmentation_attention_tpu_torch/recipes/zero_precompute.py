@@ -24,7 +24,7 @@ from pointcloud_segmentation_attention_tpu_torch.data.scannet.scenes import (
 )
 from pointcloud_segmentation_attention_tpu_torch.device import resolve
 from pointcloud_segmentation_attention_tpu_torch.recipes.common import (
-    refuse_devices,
+    check_devices,
     restore_state,
     stitched_miou,
 )
@@ -52,7 +52,7 @@ def run_zero_precompute(
     eval; returns the offline mIoU, the last 10 epochs' losses, the final
     loss, the best val mIoU and the median of the per-epoch points/s."""
     dev = resolve(device)
-    refuse_devices(n_devices)
+    check_devices(n_devices, batch_size, dev)
     data_root = os.path.join(workdir, "scannet_synth")
     write_synthetic_dataset(data_root, n_train=n_train_scenes, n_val=n_val_scenes,
                             n_points=scene_points, seed=seed, color_coded=True)

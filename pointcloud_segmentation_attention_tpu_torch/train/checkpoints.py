@@ -233,11 +233,14 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
 class BestKeeper:
     """Keeps the checkpoint of the best validation metric (prefix ``best``,
     the others pruned).  Seeded from the manifests already on disk, so a
-    resumed run does not replace a better earlier best."""
+    resumed run does not replace a better earlier best.  With ``write=False``
+    (a data-parallel rank other than 0) it tracks the best and writes
+    nothing."""
 
-    def __init__(self, ckpt_dir: str, prefix: str = "best"):
+    def __init__(self, ckpt_dir: str, prefix: str = "best", write: bool = True):
         self.ckpt_dir = ckpt_dir
         self.prefix = prefix
+        self.write = write
         self.best = -np.inf
         for manifest in _manifests(ckpt_dir, prefix):
             if manifest.get("metric") is not None:
@@ -246,7 +249,8 @@ class BestKeeper:
     def maybe_save(self, state: TrainState, step: int, metric: float) -> bool:
         if metric > self.best:
             self.best = metric
-            save_checkpoint(self.ckpt_dir, state, step, metric=metric, keep_best_only=True,
-                            prefix=self.prefix)
+            if self.write:
+                save_checkpoint(self.ckpt_dir, state, step, metric=metric,
+                                keep_best_only=True, prefix=self.prefix)
             return True
         return False

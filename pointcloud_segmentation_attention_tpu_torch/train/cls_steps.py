@@ -11,7 +11,9 @@ one Adam update at ``state``'s schedule (the trainers pass the upstream
 T-Net ``transform`` (``pointnet1_cls``, ``pointnet1_seg``) adds
 ``reg_weight`` times the orthogonality loss.  A classifier fed xyz alone is
 called with ``(xyz,)``, as the JAX package calls it.  Batches are dicts of
-numpy arrays or tensors, copied to the model's device.
+numpy arrays or tensors, copied to the model's device.  Inside a
+data-parallel step (``parallel.data_parallel``) the loss, accuracy and
+orthogonality loss are the global batch's (``parallel.mesh.reduce_metrics``).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from typing import Callable, Dict
 import torch
 
 from pointcloud_segmentation_attention_tpu_torch.models.pointnet1 import orthogonality_loss
+from pointcloud_segmentation_attention_tpu_torch.parallel.mesh import reduce_metrics
 from pointcloud_segmentation_attention_tpu_torch.train import losses, schedules
 from pointcloud_segmentation_attention_tpu_torch.train.steps import (
     _device_of,
@@ -56,8 +59,9 @@ def _train_step(state: TrainState, args, labels: torch.Tensor, dropout_seed: int
     lr = state.apply_gradients()
     preds = logits.detach().argmax(dim=-1)
     acc = (preds == labels).float().mean()
-    return state, {"loss": loss.detach(), "accuracy": acc, "ortho_loss": ortho.detach(),
-                   "learning_rate": lr}
+    out = reduce_metrics({"loss": loss, "accuracy": acc, "ortho_loss": ortho},
+                         means=("accuracy",))
+    return state, {**{k: v.detach() for k, v in out.items()}, "learning_rate": lr}
 
 
 def cls_train_step(state: TrainState, batch: Dict, dropout_seed: int = 0, *,

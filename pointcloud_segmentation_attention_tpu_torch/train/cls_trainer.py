@@ -9,8 +9,9 @@ schedule and BN decay, evaluates every epoch with multi-angle voting on the
 test split, keeps the best-accuracy checkpoint and logs to
 ``{log_dir}/cls_metrics.jsonl``.  Run it as ``python -m
 pointcloud_segmentation_attention_tpu_torch.train.cls_trainer --device
-cuda|cpu --data_root ...``.  More than one device raises
-``NotImplementedError`` (ROADMAP Queue 1 item 7).
+cuda|cpu --data_root ...``.  ``n_devices`` > 1 trains data-parallel as ``trainer.train`` does
+(spawned ranks, or the ranks of a process group; global BN statistics,
+loss, gradients and metrics; every rank evaluates, rank 0 writes).
 """
 from __future__ import annotations
 
@@ -26,7 +27,10 @@ from pointcloud_segmentation_attention_tpu_torch.data.modelnet import (
     ModelNetDataset,
     ModelNetH5Dataset,
 )
-from pointcloud_segmentation_attention_tpu_torch.device import resolve
+from pointcloud_segmentation_attention_tpu_torch.parallel.mesh import (
+    data_parallel,
+    enter_world,
+)
 from pointcloud_segmentation_attention_tpu_torch.eval.voting import evaluate_classification
 from pointcloud_segmentation_attention_tpu_torch.train import schedules
 from pointcloud_segmentation_attention_tpu_torch.train.checkpoints import BestKeeper
@@ -35,14 +39,7 @@ from pointcloud_segmentation_attention_tpu_torch.train.cls_steps import (
     cls_train_step,
 )
 from pointcloud_segmentation_attention_tpu_torch.train.train_state import TrainState
-from pointcloud_segmentation_attention_tpu_torch.utils.logging import MetricLogger
-
-
-def refuse_devices(n_devices: Optional[int]) -> None:
-    if n_devices not in (None, 1):
-        raise NotImplementedError(
-            f"n_devices={n_devices}: training on more than one device is not ported yet "
-            "(ROADMAP Queue 1 item 7)")
+from pointcloud_segmentation_attention_tpu_torch.utils.logging import MetricLogger, NoLogger
 
 
 def epoch_mean(values) -> float:
@@ -75,7 +72,10 @@ def train_classification(
     (``best_accuracy``) and the step count.  ``reg_weight`` scales a T-Net
     orthogonality loss (``None``: 0.001 for ``pointnet1_cls``, else 0); the
     classifier's input channels follow the data (3, or 6 with normals)."""
-    refuse_devices(n_devices)
+    world = enter_world(train_classification, n_devices, batch_size, device, dict(locals()))
+    if world.summary is not None:
+        return world.summary
+    mesh, writer = world.mesh, world.writer  # only rank 0 writes logs and checkpoints
     if reg_weight is None:
         reg_weight = 0.001 if model_name == "pointnet1_cls" else 0.0
     if h5_list:
@@ -95,20 +95,21 @@ def train_classification(
     # here keeps the datasets' random streams, and so the batches, equal.
     train_ds.next_batch()
     train_ds.reset()
-    dev = resolve(device)
+    dev = world.device
     model = models.get_model(model_name, device=dev, num_classes=num_classes,
                              in_features=train_ds.num_channel() - 3,
                              generator=torch.Generator().manual_seed(seed))
     state = TrainState(model, lambda step: schedules.upstream_learning_rate(
         step, base_lr, batch_size, decay_step))
     bn = lambda step: schedules.upstream_bn_momentum(step, batch_size, decay_step)  # noqa: E731
-    logger = MetricLogger(log_dir, "cls")
-    best = BestKeeper(os.path.join(log_dir, "checkpoints"))
+    logger = MetricLogger(log_dir, "cls") if writer else NoLogger()
+    best = BestKeeper(os.path.join(log_dir, "checkpoints"), write=writer)
 
     def predict_fn(points_np: np.ndarray) -> np.ndarray:
         batch = {"points": points_np, "labels": np.zeros(len(points_np), np.int32)}
         return cls_eval_step(state, batch)["logits"].cpu().numpy()
 
+    train_step = data_parallel(cls_train_step, mesh)
     steps = 0
     summary = {}
     for _ in range(epochs):
@@ -116,8 +117,8 @@ def train_classification(
         losses, accs, orthos = [], [], []
         while train_ds.has_next_batch():
             pts, labels, _ = train_ds.next_batch(augment_data=True)
-            state, m = cls_train_step(state, {"points": pts, "labels": labels}, seed,
-                                      bn_schedule=bn, reg_weight=reg_weight)
+            state, m = train_step(state, {"points": pts, "labels": labels}, seed,
+                                  bn_schedule=bn, reg_weight=reg_weight)
             losses.append(m["loss"])  # device scalars, fetched at the epoch's end
             accs.append(m["accuracy"])
             orthos.append(m["ortho_loss"])

@@ -9,7 +9,13 @@ Epoch and shuffle semantics are ``precompute.replay_train_chunks``' and
 ``packstore.PackReader.replay_batches``': each pass walks the uploaded
 epochs with a fresh per-epoch permutation, remainders carried over, so the
 rows of every step equal the pack replay's.  The port's own copy of the JAX
-package's ``train/device_replay.py``; ``mesh=`` is not ported.
+package's ``train/device_replay.py``.
+
+Under data parallelism (``mesh=``) every rank keeps the whole corpus on its
+device and reads the same global index stream; a step takes its rows of
+the indices, and the rotation angles are drawn for the global batch
+(``parallel.mesh.local_rows``), so the ranks together take world size 1's
+step.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import torch
 
 from pointcloud_segmentation_attention_tpu_torch.data.wire import WireSpec, unpack_batch
 from pointcloud_segmentation_attention_tpu_torch.device import resolve
+from pointcloud_segmentation_attention_tpu_torch.parallel.mesh import data_parallel, local_rows
 from pointcloud_segmentation_attention_tpu_torch.train import steps
 from pointcloud_segmentation_attention_tpu_torch.train.train_state import TrainState
 
@@ -35,13 +42,11 @@ class DeviceReplay:
     corpus: (K, row_nbytes) u8 (e.g. the epoch files of a
     ``packstore.PackReader``, or ``wire.pack_chunks``).  ``epoch_len`` rows
     form one epoch (default: all K); the permutation reshuffles every epoch.
+    ``mesh``: a rank's data-parallel mesh; the corpus goes to its device.
     """
 
     def __init__(self, corpus: np.ndarray, spec: WireSpec, epoch_len: Optional[int] = None,
                  mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: replay across devices is not ported yet (ROADMAP Queue 1 item 7)")
         self.spec = spec
         self.n_rows = int(corpus.shape[0])
         self.epoch_len = int(epoch_len or self.n_rows)
@@ -49,7 +54,8 @@ class DeviceReplay:
             raise ValueError(
                 f"epoch_len {self.epoch_len} outside (0, {self.n_rows}]: the stream would "
                 "index rows that are not in the corpus")
-        self.device_corpus = torch.from_numpy(np.ascontiguousarray(corpus)).to(resolve(device))
+        dev = mesh.device if mesh is not None else resolve(device)
+        self.device_corpus = torch.from_numpy(np.ascontiguousarray(corpus)).to(dev)
 
     def index_stream(self, batch_size: int, seed: int = 0) -> Iterator[np.ndarray]:
         """Endless (B,) int32 batch indices with a per-epoch reshuffle;
@@ -83,10 +89,12 @@ def rotate_batch_z(batch: Dict[str, torch.Tensor], spec: WireSpec,
     """A fresh random z-rotation per sample of a resident batch, on its
     device: one angle per sample from ``generator`` (a generator of that
     device), applied to the points and, when present, to the normals
-    columns of the features (``chunks.random_z_rotation``'s semantics)."""
+    columns of the features (``chunks.random_z_rotation``'s semantics).
+    Under a data-parallel mesh the angles are the global batch's rows."""
     points = batch["points"]
-    angle = torch.rand((points.shape[0],), generator=generator, device=points.device,
-                       dtype=torch.float32) * (2.0 * np.pi)
+    angle = local_rows(lambda shape: torch.rand(shape, generator=generator, device=points.device,
+                                                dtype=torch.float32),
+                       (points.shape[0],)) * (2.0 * np.pi)
     c, s = torch.cos(angle)[:, None], torch.sin(angle)[:, None]
 
     def rot(v):  # (B, N, 3) about z by the per-sample angle
@@ -117,10 +125,9 @@ def make_resident_train_step(spec: WireSpec, mesh=None, augment=False, **step_kw
     place, as ``seg_train_step`` does (the JAX step's ``donate`` has no
     counterpart).
     ``augment=True`` rotates each sample about z by a fresh angle every step
-    (``rotate_batch_z``, seeded from ``seed`` and the state's step)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: replay across devices is not ported yet (ROADMAP Queue 1 item 7)")
+    (``rotate_batch_z``, seeded from ``seed`` and the state's step).
+    With a data-parallel ``mesh`` the step takes the global indices and runs
+    on this rank's rows (``parallel.data_parallel``)."""
 
     def step(state: TrainState, corpus: torch.Tensor, idx, seed: int = 0):
         batch = gather_batch(corpus, idx, spec)
@@ -129,4 +136,4 @@ def make_resident_train_step(spec: WireSpec, mesh=None, augment=False, **step_kw
                                    _augment_generator(corpus.device, seed, state.step))
         return steps.seg_train_step(state, batch, seed, **step_kwargs)
 
-    return step
+    return data_parallel(step, mesh, batch_argnums=(2,))

@@ -38,6 +38,13 @@ Differences from the JAX sampler:
   that product explicitly, so their verdicts equal JAX's on every input (a
   product is correctly rounded on the CPU and on CUDA alike).
 - Everything runs as tensor ops on the scenes' device, with no host sync.
+
+Under data parallelism each rank keeps its node's scene shard on its device
+(``ResidentScenes(mesh=)``; the trainer shards the names with
+``host_shard``), every rank of a node reads the node's global scene-id
+stream, and a step takes its rows; ``make_draws`` and the rotation draw for
+the global batch and keep the rank's rows (``parallel.mesh.local_rows``),
+so on one node the ranks together take world size 1's step.
 """
 from __future__ import annotations
 
@@ -57,6 +64,7 @@ from pointcloud_segmentation_attention_tpu_torch.data.scannet.chunks import (
 )
 from pointcloud_segmentation_attention_tpu_torch.data.wire import exact_div
 from pointcloud_segmentation_attention_tpu_torch.device import resolve
+from pointcloud_segmentation_attention_tpu_torch.parallel.mesh import data_parallel, local_rows
 from pointcloud_segmentation_attention_tpu_torch.train import steps
 from pointcloud_segmentation_attention_tpu_torch.train.device_replay import (
     _augment_generator,
@@ -130,7 +138,8 @@ class ResidentScenes:
     ``d_lengths`` (S,) int64 on the device; ``offsets`` / ``lengths`` (S,)
     int32 on the host.  R = total points + ``max_len``.  ``sub_len``: the
     largest x-stripe population rounded up to 1024, at most ``max_len``.
-    ``mesh=`` is not ported and raises."""
+    ``mesh``: a rank's data-parallel mesh; the scenes (its node's shard) go
+    to its device."""
 
     @staticmethod
     def estimate_bytes(lengths, use_colors: bool = True, use_normals: bool = True) -> int:
@@ -145,17 +154,13 @@ class ResidentScenes:
                  use_colors: bool = True, use_normals: bool = True,
                  chunk_size: float = CHUNK_SIZE, margin: float = CONTEXT_MARGIN,
                  budget_mb: Optional[float] = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: resident scenes across devices are not ported yet (ROADMAP Queue 1 "
-                "item 7)")
         if not scenes:
             raise ValueError(
                 "ResidentScenes got an empty scene list — input='sampler' needs at least "
                 "one train scene")
         lengths = np.array([len(s["points"]) for s in scenes], np.int32)
         check_budget(lengths, use_colors, use_normals, budget_mb)
-        self.device = resolve(device)
+        self.device = mesh.device if mesh is not None else resolve(device)
         self.lengths = lengths
         self.offsets = np.concatenate([[0], np.cumsum(lengths)[:-1]]).astype(np.int32)
         self.max_len = int(lengths.max())
@@ -271,12 +276,15 @@ def make_draws(scenes: ResidentScenes, scene_ids: torch.Tensor, npoints: int,
     """The random numbers of one ``sample_chunk_batch`` call, from
     ``generator`` (a generator of the scenes' device): centres (B,
     MAX_TRIES) int64 uniform in [0, length of the sample's scene), u (B,
-    npoints) float32 in [0, 1)."""
+    npoints) float32 in [0, 1).  Under a data-parallel mesh, ``scene_ids``
+    are this rank's rows and the draws are the global batch's rows."""
     b = scene_ids.shape[0]
     dev = scenes.device
     lengths = scenes.d_lengths[scene_ids.to(dev).long()]
-    raw = torch.randint(1 << 62, (b, MAX_TRIES), generator=generator, device=dev)
-    u = torch.rand((b, npoints), generator=generator, device=dev, dtype=torch.float32)
+    raw = local_rows(lambda shape: torch.randint(1 << 62, shape, generator=generator,
+                                                 device=dev), (b, MAX_TRIES))
+    u = local_rows(lambda shape: torch.rand(shape, generator=generator, device=dev,
+                                            dtype=torch.float32), (b, npoints))
     return raw % lengths[:, None], u
 
 
@@ -382,13 +390,17 @@ def _sampler_generator(device: torch.device, seed: int, step: int) -> torch.Gene
 
 
 def make_sampling_train_step(scenes: ResidentScenes, npoints: int, *, class_weights=None,
-                             occupancy: str = "fast", augment: bool = False, **step_kwargs):
+                             occupancy: str = "fast", augment: bool = False, mesh=None,
+                             **step_kwargs):
     """``step(state, scene_ids, seed=0, draws=None) -> (state, metrics)``:
     cut a fresh chunk per sample on the device and run ``seg_train_step``
     on them (the state is updated in place).  ``draws`` default to
     ``make_draws`` from a generator seeded by (seed, state.step).
     ``augment=True`` turns each chunk about z by a fresh angle
-    (``rotate_batch_z``, seeded by (seed, 77, state.step))."""
+    (``rotate_batch_z``, seeded by (seed, 77, state.step)).  With a
+    data-parallel ``mesh`` the step takes the global scene ids and runs on
+    this rank's rows (``parallel.data_parallel``); explicit ``draws`` are
+    then this rank's rows."""
 
     def step(state: TrainState, scene_ids, seed: int = 0, draws=None):
         dev = scenes.device
@@ -401,5 +413,5 @@ def make_sampling_train_step(scenes: ResidentScenes, npoints: int, *, class_weig
             batch = rotate_batch_z(batch, scenes, _augment_generator(dev, seed, state.step))
         return steps.seg_train_step(state, batch, seed, **step_kwargs)
 
-    return step
+    return data_parallel(step, mesh)
 

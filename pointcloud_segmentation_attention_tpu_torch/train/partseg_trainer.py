@@ -10,8 +10,9 @@ part IoU averaged per category on 'test' every epoch, keeps the best
 class-average-IoU checkpoint and logs to
 ``{log_dir}/part_seg_metrics.jsonl``.  Run it as ``python -m
 pointcloud_segmentation_attention_tpu_torch.train.partseg_trainer --device
-cuda|cpu --data_root ...``.  More than one device raises
-``NotImplementedError`` (ROADMAP Queue 1 item 7).
+cuda|cpu --data_root ...``.  ``n_devices`` > 1 trains data-parallel as ``trainer.train`` does
+(spawned ranks, or the ranks of a process group; global BN statistics,
+loss, gradients and metrics; every rank evaluates, rank 0 writes).
 """
 from __future__ import annotations
 
@@ -23,7 +24,10 @@ import torch
 
 from pointcloud_segmentation_attention_tpu_torch import models
 from pointcloud_segmentation_attention_tpu_torch.data.shapenet_part import PartNormalDataset
-from pointcloud_segmentation_attention_tpu_torch.device import resolve
+from pointcloud_segmentation_attention_tpu_torch.parallel.mesh import (
+    data_parallel,
+    enter_world,
+)
 from pointcloud_segmentation_attention_tpu_torch.eval.part_iou import PartIoUAccumulator
 from pointcloud_segmentation_attention_tpu_torch.train import schedules
 from pointcloud_segmentation_attention_tpu_torch.train.checkpoints import BestKeeper
@@ -33,10 +37,9 @@ from pointcloud_segmentation_attention_tpu_torch.train.cls_steps import (
 )
 from pointcloud_segmentation_attention_tpu_torch.train.cls_trainer import (
     epoch_mean,
-    refuse_devices,
 )
 from pointcloud_segmentation_attention_tpu_torch.train.train_state import TrainState
-from pointcloud_segmentation_attention_tpu_torch.utils.logging import MetricLogger
+from pointcloud_segmentation_attention_tpu_torch.utils.logging import MetricLogger, NoLogger
 
 
 def train_part_segmentation(
@@ -57,7 +60,10 @@ def train_part_segmentation(
     """Returns a summary dict with the best class-average part IoU
     (``best_class_avg_iou``) and the step count.  ``reg_weight=None`` is
     0.001 for ``pointnet1_seg`` (a T-Net model), else 0."""
-    refuse_devices(n_devices)
+    world = enter_world(train_part_segmentation, n_devices, batch_size, device, dict(locals()))
+    if world.summary is not None:
+        return world.summary
+    mesh, writer = world.mesh, world.writer  # only rank 0 writes logs and checkpoints
     one_hot = model_name == "part_seg_msg_one_hot"
     is_v1 = model_name == "pointnet1_seg"  # xyz alone; returns (logits, end_points)
     if reg_weight is None:
@@ -67,13 +73,13 @@ def train_part_segmentation(
     # The JAX trainer reads one batch to initialise its model; the same read
     # here keeps the dataset's random stream, and so the batches, equal.
     next(train_ds.batches(batch_size, shuffle=False))
-    model = models.get_model(model_name, device=resolve(device),
+    model = models.get_model(model_name, device=world.device,
                              generator=torch.Generator().manual_seed(seed))
     state = TrainState(model, lambda step: schedules.upstream_learning_rate(
         step, base_lr, batch_size))
     bn = lambda step: schedules.upstream_bn_momentum(step, batch_size)  # noqa: E731
-    logger = MetricLogger(log_dir, "part_seg")
-    best = BestKeeper(os.path.join(log_dir, "checkpoints"))
+    logger = MetricLogger(log_dir, "part_seg") if writer else NoLogger()
+    best = BestKeeper(os.path.join(log_dir, "checkpoints"), write=writer)
     cats = sorted(test_ds.classes, key=lambda c: test_ds.classes[c])
 
     def make(pts, seg, cls):
@@ -82,13 +88,14 @@ def train_part_segmentation(
             batch["cls"] = cls
         return batch
 
+    train_step = data_parallel(partseg_train_step, mesh)
     steps = 0
     summary = {}
     for _ in range(epochs):
         losses, orthos = [], []
         for pts, seg, cls, _ in train_ds.batches(batch_size):
-            state, m = partseg_train_step(state, make(pts, seg, cls), seed, bn_schedule=bn,
-                                          reg_weight=reg_weight)
+            state, m = train_step(state, make(pts, seg, cls), seed, bn_schedule=bn,
+                                  reg_weight=reg_weight)
             losses.append(m["loss"])  # device scalars, fetched at the epoch's end
             orthos.append(m["ortho_loss"])
             steps += 1

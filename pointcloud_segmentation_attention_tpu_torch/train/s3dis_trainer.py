@@ -10,8 +10,10 @@ Adam at the upstream learning-rate schedule and BN decay (decay step
 every epoch, keeps the best-mIoU checkpoint and logs to
 ``{log_dir}/s3dis_metrics.jsonl``.  Run it as ``python -m
 pointcloud_segmentation_attention_tpu_torch.train.s3dis_trainer --device
-cuda|cpu --data_root DIR`` (one ``.npy`` (N, 7) room a file).  More than one
-device raises ``NotImplementedError`` (ROADMAP Queue 1 item 7).
+cuda|cpu --data_root DIR`` (one ``.npy`` (N, 7) room a file).
+``n_devices`` > 1 trains data-parallel as ``trainer.train`` does
+(spawned ranks, or the ranks of a process group; global BN statistics,
+loss, gradients and metrics; every rank evaluates, rank 0 writes).
 """
 from __future__ import annotations
 
@@ -24,7 +26,10 @@ import torch
 
 from pointcloud_segmentation_attention_tpu_torch import models
 from pointcloud_segmentation_attention_tpu_torch.data import s3dis
-from pointcloud_segmentation_attention_tpu_torch.device import resolve
+from pointcloud_segmentation_attention_tpu_torch.parallel.mesh import (
+    data_parallel,
+    enter_world,
+)
 from pointcloud_segmentation_attention_tpu_torch.train import schedules
 from pointcloud_segmentation_attention_tpu_torch.train.checkpoints import BestKeeper
 from pointcloud_segmentation_attention_tpu_torch.train.cls_steps import (
@@ -33,11 +38,10 @@ from pointcloud_segmentation_attention_tpu_torch.train.cls_steps import (
 )
 from pointcloud_segmentation_attention_tpu_torch.train.cls_trainer import (
     epoch_mean,
-    refuse_devices,
 )
 from pointcloud_segmentation_attention_tpu_torch.train.metrics import StreamingMeanIoU
 from pointcloud_segmentation_attention_tpu_torch.train.train_state import TrainState
-from pointcloud_segmentation_attention_tpu_torch.utils.logging import MetricLogger
+from pointcloud_segmentation_attention_tpu_torch.utils.logging import MetricLogger, NoLogger
 
 NUM_CLASSES = 13
 DECAY_STEP = 300000
@@ -74,18 +78,22 @@ def train_s3dis(
     """Returns a summary dict with the best test mIoU (``best_miou``) and the
     step count.  Each epoch visits the blocks in a permutation of
     ``RandomState(seed)``'s stream, in whole batches."""
-    refuse_devices(n_devices)
+    world = enter_world(train_s3dis, n_devices, batch_size, device, dict(locals()))
+    if world.summary is not None:
+        return world.summary
+    mesh, writer = world.mesh, world.writer  # only rank 0 writes logs and checkpoints
     data, labels = rooms_to_block_dataset(train_rooms, num_point, seed)
-    model = models.get_model("pointnet1_sem_seg", device=resolve(device),
+    model = models.get_model("pointnet1_sem_seg", device=world.device,
                              num_classes=NUM_CLASSES,
                              generator=torch.Generator().manual_seed(seed))
     state = TrainState(model, lambda step: schedules.upstream_learning_rate(
         step, base_lr, batch_size, decay_step=DECAY_STEP))
     bn = lambda step: schedules.upstream_bn_momentum(step, batch_size, DECAY_STEP)  # noqa: E731
-    logger = MetricLogger(log_dir, "s3dis")
-    best = BestKeeper(os.path.join(log_dir, "checkpoints"))
+    logger = MetricLogger(log_dir, "s3dis") if writer else NoLogger()
+    best = BestKeeper(os.path.join(log_dir, "checkpoints"), write=writer)
     order_rng = np.random.RandomState(seed)
 
+    train_step = data_parallel(partseg_train_step, mesh)
     steps = 0
     summary = {}
     n = len(data)
@@ -94,8 +102,8 @@ def train_s3dis(
         losses = []
         for start in range(0, n - batch_size + 1, batch_size):
             sel = order[start:start + batch_size]
-            state, m = partseg_train_step(state, {"points": data[sel], "labels": labels[sel]},
-                                          seed, bn_schedule=bn)
+            state, m = train_step(state, {"points": data[sel], "labels": labels[sel]},
+                                  seed, bn_schedule=bn)
             losses.append(m["loss"])  # device scalars, fetched at the epoch's end
             steps += 1
             if max_steps and steps >= max_steps:

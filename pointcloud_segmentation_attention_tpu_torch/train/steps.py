@@ -9,6 +9,11 @@ card), one Adam update, and the confusion matrix, accuracy and LR of the
 batch.  Batches are dicts of numpy arrays or tensors, in the f32, compact
 or packed wire format of ``data.pipeline.make_batch``; they are copied to
 the model's device on the current stream and decoded there.
+
+Inside a data-parallel step (``parallel.data_parallel``) a step runs on
+this rank's rows of the global batch, and its BN statistics, loss
+normaliser, gradients and metrics are the global batch's: 'loss',
+'accuracy' and 'confusion' equal world size 1's on every rank.
 """
 from __future__ import annotations
 
@@ -22,6 +27,11 @@ from torch import nn
 from torch.utils import checkpoint
 
 from pointcloud_segmentation_attention_tpu_torch.nn.layers import apply_bn_updates, bn_updates
+from pointcloud_segmentation_attention_tpu_torch.parallel.mesh import (
+    activate,
+    active_mesh,
+    global_sum,
+)
 from pointcloud_segmentation_attention_tpu_torch.train import losses, metrics, schedules
 from pointcloud_segmentation_attention_tpu_torch.train.train_state import TrainState
 
@@ -104,14 +114,25 @@ def _dropout_generator(device: torch.device, seed: int, step: int) -> torch.Gene
     return torch.Generator(device=device).manual_seed(int(mixed))
 
 
-def _batch_metrics(logits: torch.Tensor, labels: torch.Tensor, num_classes: int):
-    """(predictions (B,N) int32, {'accuracy', 'confusion'}) over label > 0."""
+def _batch_metrics(logits: torch.Tensor, labels: torch.Tensor, num_classes: int,
+                   loss: torch.Tensor):
+    """(predictions (B,N) int32, {'loss', 'accuracy', 'confusion'}) over
+    label > 0; under a mesh, of the global batch (one all-reduce of the
+    confusion, the correct and valid counts and the ranks' losses)."""
     preds = logits.argmax(dim=-1).to(torch.int32)
     valid = labels > 0
     confusion = metrics.update_confusion(
         torch.zeros((num_classes, num_classes), dtype=torch.float32, device=logits.device),
         labels, preds, valid)
-    return preds, {"accuracy": metrics.accuracy(labels, preds, valid), "confusion": confusion}
+    if active_mesh() is None:
+        return preds, {"loss": loss.detach(), "accuracy": metrics.accuracy(labels, preds, valid),
+                       "confusion": confusion}
+    correct = ((labels == preds) & valid).float().sum()
+    flat = global_sum(torch.cat([confusion.reshape(-1),
+                                 torch.stack([correct, valid.float().sum(), loss.detach()])]))
+    k = num_classes * num_classes
+    return preds, {"loss": flat[k + 2], "accuracy": flat[k] / flat[k + 1].clamp_min(1.0),
+                   "confusion": flat[:k].reshape(num_classes, num_classes)}
 
 
 # The matmul outputs that ``remat='dots'`` keeps (``torch.matmul`` on (B, N,
@@ -163,12 +184,14 @@ def _loss_and_logits(model: nn.Module, batch: Dict[str, torch.Tensor], bn_moment
         raise ValueError(f"remat must be 'none'|'dots'|'full', got {remat!r}")
     records: list = []
     rng_state = generator.get_state()
+    mesh = active_mesh()  # the recomputation may run on autograd's thread
 
     def contexts():
         first, again = ((contextlib.nullcontext(), contextlib.nullcontext()) if remat == "full"
                         else checkpoint.create_selective_checkpoint_contexts(_dots_saveable))
         return (_entered(first, bn_updates(records)),
-                _entered(again, bn_updates(None), _restored(generator, rng_state)))
+                _entered(again, bn_updates(None), _restored(generator, rng_state),
+                         activate(mesh)))
 
     loss, logits = checkpoint.checkpoint(run, batch["points"], batch.get("features"),
                                          use_reentrant=False, context_fn=contexts,
@@ -211,8 +234,8 @@ def seg_train_step(
     loss.backward()
     apply_bn_updates(bn_records)
     lr = state.apply_gradients()
-    _, out = _batch_metrics(logits.detach(), batch["labels"], num_classes)
-    out.update(loss=loss.detach(), learning_rate=lr)
+    _, out = _batch_metrics(logits.detach(), batch["labels"], num_classes, loss)
+    out["learning_rate"] = lr
     return state, out
 
 
@@ -230,9 +253,9 @@ def seg_eval_step(state: TrainState, batch: Dict, *, num_classes: int = 21,
             logits = model(batch["points"], batch.get("features"))
     finally:
         model.train(was_training)
-    preds, out = _batch_metrics(logits, batch["labels"], num_classes)
-    out.update(predictions=preds, loss=losses.weighted_softmax_cross_entropy(
-        logits, batch["labels"], batch["weights"]))
+    loss = losses.weighted_softmax_cross_entropy(logits, batch["labels"], batch["weights"])
+    preds, out = _batch_metrics(logits, batch["labels"], num_classes, loss)
+    out["predictions"] = preds
     return out
 
 

@@ -8,7 +8,10 @@ incremented.  ``torch.optim.Adam`` computes the same update when its LR is
 set from the schedule at the pre-increment step before each ``step()``,
 which is what ``apply_gradients`` does.  Its state is created up front, so
 a JAX checkpoint's ``mu``/``nu``/``count`` can be loaded into it before the
-first step (``train/checkpoints.py``).
+first step (``train/checkpoints.py``).  Inside a data-parallel step the
+gradients are summed across ranks before the update (one flat all-reduce,
+``parallel.mesh.all_reduce_gradients``), so every rank applies the same
+update.
 """
 from __future__ import annotations
 
@@ -17,6 +20,10 @@ from typing import Callable
 import torch
 from torch import nn
 
+from pointcloud_segmentation_attention_tpu_torch.parallel.mesh import (
+    active_mesh,
+    all_reduce_gradients,
+)
 from pointcloud_segmentation_attention_tpu_torch.train import schedules
 
 ADAM_BETAS = (0.9, 0.999)
@@ -44,7 +51,11 @@ class TrainState:
             }
 
     def apply_gradients(self) -> float:
-        """One Adam update from the parameters' ``.grad``; returns the LR used."""
+        """One Adam update from the parameters' ``.grad`` (summed over the
+        ranks of an active mesh first); returns the LR used."""
+        mesh = active_mesh()
+        if mesh is not None:
+            all_reduce_gradients(list(self.model.parameters()), mesh)
         lr = self.lr_schedule(self.step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr

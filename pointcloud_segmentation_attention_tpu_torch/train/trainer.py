@@ -14,12 +14,24 @@ validates every ``n_epochs_to_val`` epochs, keeps the best-val-mIoU
 checkpoint and writes periodic ones.  Checkpoints and logs have the JAX
 package's formats.
 
+Data parallelism (``n_devices`` > 1): called from a plain process, ``train``
+spawns ``n_devices`` ranks (``parallel.spawn``: ``cuda:r`` each over NCCL,
+or CPU processes over gloo with ``device='cpu'``) and returns rank 0's
+summary; inside an initialised process group (``torchrun``, or a
+``parallel.RankPool``) it runs as its rank of the world.  Every rank reads
+the same global batches, takes its rows (``parallel.shard_batch``) and runs
+the step under ``parallel.data_parallel``, so the run equals world size 1's
+(BN statistics, loss normaliser, gradients, metrics and random draws are
+the global batch's); validation is sharded the same way.  With
+``input='sampler'`` each node keeps its scene shard (``host_shard``) and
+seeds its scene stream with ``seed + 31 * node``, as the JAX trainer seeds
+``seed + 31 * process_index``.  Only rank 0 writes checkpoints and logs.
+
 Run it as ``python -m pointcloud_segmentation_attention_tpu_torch.train.trainer
 --device=cuda|cpu --data_root=... [--<TrainConfig field>=...]``.
 
 ``compute_dtype='bfloat16'`` builds the model with bf16 products and
-float32 parameters (``nn/layers.py:mixed_matmul``); more than one device
-raises ``NotImplementedError`` (not ported yet).
+float32 parameters (``nn/layers.py:mixed_matmul``).
 """
 from __future__ import annotations
 
@@ -31,8 +43,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from pointcloud_segmentation_attention_tpu_torch import models
+from pointcloud_segmentation_attention_tpu_torch import models, parallel
 from pointcloud_segmentation_attention_tpu_torch.data import pipeline
 from pointcloud_segmentation_attention_tpu_torch.data.scannet import packstore, precompute
 from pointcloud_segmentation_attention_tpu_torch.data.scannet.chunks import (
@@ -47,6 +60,7 @@ from pointcloud_segmentation_attention_tpu_torch.data.scannet.scenes import (
 )
 from pointcloud_segmentation_attention_tpu_torch.data.wire import WireSpec, split_wire_batch
 from pointcloud_segmentation_attention_tpu_torch.device import resolve
+from pointcloud_segmentation_attention_tpu_torch.parallel import collectives
 from pointcloud_segmentation_attention_tpu_torch.train import (
     device_replay,
     device_sampler,
@@ -62,7 +76,7 @@ from pointcloud_segmentation_attention_tpu_torch.train.checkpoints import (
 from pointcloud_segmentation_attention_tpu_torch.train.metrics import StreamingMeanIoU
 from pointcloud_segmentation_attention_tpu_torch.train.train_state import TrainState
 from pointcloud_segmentation_attention_tpu_torch.utils.config import TrainConfig
-from pointcloud_segmentation_attention_tpu_torch.utils.logging import MetricLogger
+from pointcloud_segmentation_attention_tpu_torch.utils.logging import MetricLogger, NoLogger
 
 
 def select_model(config: TrainConfig, *, device="cuda",
@@ -117,13 +131,6 @@ def resolve_input_mode(config: TrainConfig) -> str:
     return mode
 
 
-def _refuse_unported(config: TrainConfig) -> None:
-    if config.n_devices not in (None, 1):
-        raise NotImplementedError(
-            f"n_devices={config.n_devices}: training on more than one device is not "
-            "ported yet (ROADMAP Queue 1 item 7)")
-
-
 def make_eval_state(config: TrainConfig, *, device="cuda") -> TrainState:
     """A train state of ``config``'s model and Adam, the template that a
     checkpoint of ``train`` (or of the JAX trainer) restores into."""
@@ -144,15 +151,18 @@ def _precomputed_epochs(precompute_dir: str, scenes) -> int:
     return n
 
 
-def _pack_reader(config: TrainConfig, wire_spec, train_scenes, epochs: int):
+def _pack_reader(config: TrainConfig, wire_spec, train_scenes, epochs: int, mesh=None):
     """The pack store of ``wire_spec`` beside the precomputed chunks, written
-    where it is missing."""
+    where it is missing (by rank 0, while the other ranks wait)."""
     pack_dir = os.path.join(
         config.precompute_dir,
         f"pack_{wire_spec.layout}_c{int(wire_spec.use_colors)}"
         f"n{int(wire_spec.use_normals)}_p{wire_spec.n}")
-    packstore.write_pack_from_npz(config.precompute_dir, pack_dir, epochs, train_scenes,
-                                  wire_spec)
+    if mesh is None or mesh.rank == 0:
+        packstore.write_pack_from_npz(config.precompute_dir, pack_dir, epochs, train_scenes,
+                                      wire_spec)
+    if mesh is not None:
+        collectives.barrier(mesh.group)
     return packstore.PackReader(pack_dir)
 
 
@@ -178,9 +188,9 @@ def _resident_indices(replay: device_replay.DeviceReplay, config: TrainConfig, d
 
 
 def _sampler_scenes(config: TrainConfig, train_scenes, dev) -> device_sampler.ResidentScenes:
-    """The train scenes resident on the device for ``input='sampler'``.  The
-    budget is checked from the scenes' array headers before any body is
-    loaded."""
+    """The train scenes resident on the device for ``input='sampler'`` (the
+    node's shard under data parallelism).  The budget is checked from the
+    scenes' array headers before any body is loaded."""
     lengths = [np.load(scene_path(config.data_root, "points", name), mmap_mode="r").shape[0]
                for name in train_scenes]
     device_sampler.check_budget(lengths, config.use_colors, config.use_normals,
@@ -191,13 +201,14 @@ def _sampler_scenes(config: TrainConfig, train_scenes, dev) -> device_sampler.Re
         chunk_size=config.chunk_size, margin=config.context_margin)
 
 
-def _scene_id_stream(config: TrainConfig, n_scenes: int, dev):
+def _scene_id_stream(config: TrainConfig, n_scenes: int, dev, node: int = 0):
     """The endless stream of ``{'scene_ids': (B,) int32}``: a permutation of
-    the train scenes a pass, cut into batches (one batch of the permutation
-    resized to B when there are fewer scenes than B), the JAX trainer's
-    stream of process 0 (it seeds ``seed + 31 * process_index``); pinned on
-    a card so the step copies it without a host sync."""
-    rng = np.random.RandomState(config.seed)
+    the node's train scenes a pass, cut into batches (one batch of the
+    permutation resized to B when there are fewer scenes than B), seeded
+    ``seed + 31 * node`` as the JAX trainer seeds ``seed + 31 *
+    process_index``; pinned on a card so the step copies it without a host
+    sync."""
+    rng = np.random.RandomState(config.seed + 31 * node)
     b = config.batch_size
     n_full = n_scenes // b * b
     while True:
@@ -221,10 +232,11 @@ def _onfly_val_chunks(data_root: str, val_scenes, n_points: int, seed: int = 0,
             yield {k: out[k][i] for k in ("points", "labels", "colors", "normals", "weights")}
 
 
-def _host_batches(config: TrainConfig, mode: str, wire_spec, train_scenes, epochs: int):
-    """The endless stream of host (numpy) training batches of ``mode``."""
+def _host_batches(config: TrainConfig, mode: str, wire_spec, train_scenes, epochs: int,
+                  mesh=None):
+    """The endless stream of host (numpy) global training batches of ``mode``."""
     if mode == "packed":
-        reader = _pack_reader(config, wire_spec, train_scenes, epochs)
+        reader = _pack_reader(config, wire_spec, train_scenes, epochs, mesh)
         _, n_splits = WireSpec.from_format(config.wire_format, n=config.n_points,
                                            use_colors=config.use_colors,
                                            use_normals=config.use_normals)
@@ -244,6 +256,9 @@ def train(config: TrainConfig, max_steps: Optional[int] = None,
           max_seconds: Optional[float] = None, *, device="cuda") -> dict:
     """Train on ``device`` (no fallback: 'cuda' without a card raises) and
     return ``{'final_train_loss', 'best_val_miou', 'final_step'}``.
+    ``config.n_devices`` > 1 trains data-parallel (see the module's
+    docstring); more ranks than CUDA devices, or a batch that does not
+    divide over them, raises.
     ``max_seconds`` stops at a wall-clock budget, checked before each step;
     such a run always writes a final checkpoint.
 
@@ -253,9 +268,13 @@ def train(config: TrainConfig, max_steps: Optional[int] = None,
     checkpoints are not in it), input_wait_s (time spent waiting for the
     next batch) and epoch_s; each validation logs val_miou, val_loss and
     val_accuracy."""
-    dev = resolve(device)
     mode = resolve_input_mode(config)
-    _refuse_unported(config)
+    world = parallel.enter_world(train, config.n_devices, config.batch_size, device,
+                                 dict(config=config, max_steps=max_steps,
+                                      max_seconds=max_seconds, device=device))
+    if world.summary is not None:
+        return world.summary
+    mesh, dev = world.mesh, world.device
     train_scenes = read_split(config.split_dir, "train")
     if config.use_subset:
         train_scenes = train_scenes[: len(train_scenes) // 3]
@@ -273,10 +292,12 @@ def train(config: TrainConfig, max_steps: Optional[int] = None,
     step_kwargs = dict(bn_schedule=bn, num_classes=config.num_classes, remat=config.remat)
     val_chunks = None
     if mode == "sampler":
+        local_scenes = parallel.host_shard(train_scenes) if mesh is not None else train_scenes
         sampler_step = device_sampler.make_sampling_train_step(
-            _sampler_scenes(config, train_scenes, dev), config.n_points,
+            _sampler_scenes(config, local_scenes, dev), config.n_points, mesh=mesh,
             augment=config.resident_augment, **step_kwargs)
-        source = _scene_id_stream(config, n_train, dev)
+        source = _scene_id_stream(config, len(local_scenes), dev,
+                                  parallel.node_index() if mesh is not None else 0)
 
         def train_step(state, batch):
             return sampler_step(state, batch["scene_ids"], config.seed)
@@ -285,9 +306,10 @@ def train(config: TrainConfig, max_steps: Optional[int] = None,
     elif mode == "resident":
         epochs_avail = _precomputed_epochs(config.precompute_dir, train_scenes)
         replay = _resident_replay(
-            config, _pack_reader(config, wire_spec, train_scenes, epochs_avail), wire_spec, dev)
+            config, _pack_reader(config, wire_spec, train_scenes, epochs_avail, mesh),
+            wire_spec, dev)
         resident_step = device_replay.make_resident_train_step(
-            wire_spec, augment=config.resident_augment, **step_kwargs)
+            wire_spec, mesh=mesh, augment=config.resident_augment, **step_kwargs)
         source = _resident_indices(replay, config, dev)
 
         def train_step(state, batch):
@@ -295,25 +317,26 @@ def train(config: TrainConfig, max_steps: Optional[int] = None,
                                  config.seed)
     else:
         source = _host_batches(config, mode, wire_spec, train_scenes,
-                               _precomputed_epochs(config.precompute_dir, train_scenes))
+                               _precomputed_epochs(config.precompute_dir, train_scenes), mesh)
+        seg_step = parallel.data_parallel(steps.seg_train_step, mesh)
 
         def train_step(state, batch):
-            return steps.seg_train_step(state, batch, config.seed, wire_spec=wire_spec,
-                                        **step_kwargs)
+            return seg_step(state, batch, config.seed, wire_spec=wire_spec, **step_kwargs)
 
     train_iter = pipeline.prefetch(source, depth=4)
     try:
         batch = next(train_iter)
         model = select_model(config, device=dev,
                              generator=torch.Generator().manual_seed(config.seed))
+        parallel.replicate(model, mesh)
         state = TrainState(model, lr_schedule=lr)
         if config.resume:
             ckpt = (latest_checkpoint(config.ckpt_dir)
                     or latest_checkpoint(config.ckpt_dir, prefix="best"))
             if ckpt is not None:
-                restore_checkpoint(ckpt, state)
+                restore_checkpoint(ckpt, state)  # every rank reads the same file
         return _train_loop(config, state, batch, train_iter, train_step, wire_spec,
-                           val_scenes, val_chunks, n_train, max_steps, max_seconds)
+                           val_scenes, val_chunks, n_train, max_steps, max_seconds, mesh)
     finally:
         train_iter.close()
 
@@ -337,10 +360,23 @@ def _val_chunk_source(config: TrainConfig, val_scenes):
     return chunks
 
 
+def _out_of_time(t0: float, max_seconds: Optional[float], mesh) -> bool:
+    """Whether the wall-clock budget is spent; under a mesh, rank 0's clock
+    decides for every rank (one broadcast a step, only with a budget)."""
+    if max_seconds is None:
+        return False
+    spent = time.perf_counter() - t0 > max_seconds
+    if mesh is None:
+        return spent
+    flag = torch.tensor([float(spent)], device=mesh.device)
+    return bool(collectives.broadcast(flag, 0, mesh.group).item())
+
+
 def _train_loop(config, state, batch, train_iter, train_step, wire_spec, val_scenes,
-                val_chunks, n_train, max_steps, max_seconds) -> dict:
-    logger = MetricLogger(config.log_dir, "train")
-    best = BestKeeper(config.ckpt_dir)
+                val_chunks, n_train, max_steps, max_seconds, mesh=None) -> dict:
+    writer = mesh is None or mesh.rank == 0
+    logger = MetricLogger(config.log_dir, "train") if writer else NoLogger()
+    best = BestKeeper(config.ckpt_dir, write=writer)
     train_miou = StreamingMeanIoU(config.num_classes)
     steps_per_epoch = max(1, n_train // config.batch_size)
     total_steps = max_steps or config.epochs * steps_per_epoch
@@ -351,7 +387,7 @@ def _train_loop(config, state, batch, train_iter, train_step, wire_spec, val_sce
     step_idx = -1
     try:
         for step_idx in range(total_steps):
-            if max_seconds is not None and time.perf_counter() - train_t0 > max_seconds:
+            if _out_of_time(train_t0, max_seconds, mesh):
                 step_idx -= 1  # this step did not run
                 break
             state, m = train_step(state, batch)
@@ -382,11 +418,11 @@ def _train_loop(config, state, batch, train_iter, train_step, wire_spec, val_sce
             })
             train_miou.reset()
             loss_acc = acc_acc = conf_acc = None
-            if config.save_every_epochs and epoch % config.save_every_epochs == 0:
+            if writer and config.save_every_epochs and epoch % config.save_every_epochs == 0:
                 save_checkpoint(config.ckpt_dir, state, step_idx + 1)
             if epoch % config.n_epochs_to_val == 0:
                 val = evaluate(config, state, val_scenes, wire_spec=wire_spec,
-                               chunk_iter=val_chunks() if val_chunks else None)
+                               chunk_iter=val_chunks() if val_chunks else None, mesh=mesh)
                 logger.log(step_idx + 1, {f"val_{k}": v for k, v in val.items()})
                 if best.maybe_save(state, step_idx + 1, val["miou"]):
                     summary["best_val_miou"] = val["miou"]
@@ -394,7 +430,7 @@ def _train_loop(config, state, batch, train_iter, train_step, wire_spec, val_sce
             epoch_t0 = time.perf_counter()
     finally:
         logger.close()
-    if max_seconds is not None and step_idx + 1 < total_steps:
+    if writer and max_seconds is not None and step_idx + 1 < total_steps:
         save_checkpoint(config.ckpt_dir, state, step_idx + 1)
     summary["final_step"] = int(state.step)
     summary.setdefault("best_val_miou", best.best if best.best > -np.inf else None)
@@ -402,11 +438,13 @@ def _train_loop(config, state, batch, train_iter, train_step, wire_spec, val_sce
 
 
 def evaluate(config: TrainConfig, state: TrainState, val_scenes, *, wire_spec=None,
-             chunk_iter=None) -> dict:
+             chunk_iter=None, mesh=None) -> dict:
     """One pass over the precomputed val chunks (or ``chunk_iter``) in
     batches of ``batch_size``, the last one padded: ``{'miou', 'loss',
     'accuracy'}``, loss and accuracy the means over batches.  The sums stay
-    on the device and are fetched once."""
+    on the device and are fetched once.  Under a mesh each rank evaluates
+    its rows of every batch and the metrics are the global batch's."""
+    eval_step = parallel.data_parallel(steps.seg_eval_step, mesh)
     it = pipeline.batched(
         chunk_iter if chunk_iter is not None
         else precompute.replay_val_chunks(config.precompute_dir, val_scenes),
@@ -417,8 +455,7 @@ def evaluate(config: TrainConfig, state: TrainState, val_scenes, *, wire_spec=No
     batches = pipeline.prefetch(it)
     try:
         for batch in batches:
-            m = steps.seg_eval_step(state, batch, num_classes=config.num_classes,
-                                    wire_spec=wire_spec)
+            m = eval_step(state, batch, num_classes=config.num_classes, wire_spec=wire_spec)
             conf = _sum(conf, m["confusion"])
             loss_sum = _sum(loss_sum, m["loss"])
             acc_sum = _sum(acc_sum, m["accuracy"])
@@ -438,14 +475,19 @@ def evaluate(config: TrainConfig, state: TrainState, val_scenes, *, wire_spec=No
 def main(argv=None) -> None:
     """``--device`` (default cuda) plus every ``TrainConfig`` field as a flag
     (``--config file.json`` first, flags over it); writes the config to
-    ``{log_dir}/config.json`` and prints the summary."""
+    ``{log_dir}/config.json`` (rank 0) and prints the summary.  Started by
+    ``torchrun``, each process first joins the world's process group
+    (``parallel.initialize_distributed``; gloo for ``--device=cpu``)."""
     parser = argparse.ArgumentParser(add_help=False)
     parser.add_argument("--device", default="cuda")
     known, rest = parser.parse_known_args(argv)
+    parallel.initialize_distributed(
+        backend="gloo" if torch.device(known.device).type == "cpu" else None)
     config = TrainConfig.from_args(rest)
-    os.makedirs(config.log_dir, exist_ok=True)
-    with open(os.path.join(config.log_dir, "config.json"), "w") as f:
-        f.write(config.to_json())
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        os.makedirs(config.log_dir, exist_ok=True)
+        with open(os.path.join(config.log_dir, "config.json"), "w") as f:
+            f.write(config.to_json())
     print(train(config, device=known.device))
 
 

@@ -13,8 +13,10 @@ the BN decay over twice that step.  Every epoch validates the label and
 per-point part accuracy, keeps the best-part-accuracy checkpoint and logs to
 ``{log_dir}/v1_part_seg_metrics.jsonl``.  Run it as ``python -m
 pointcloud_segmentation_attention_tpu_torch.train.v1_partseg_trainer
---device cuda|cpu --train_list ... --val_list ...``.  More than one device
-raises ``NotImplementedError`` (ROADMAP Queue 1 item 7).
+--device cuda|cpu --train_list ... --val_list ...``.
+``n_devices`` > 1 trains data-parallel as ``trainer.train`` does
+(spawned ranks, or the ranks of a process group; global BN statistics,
+loss, gradients and metrics; every rank evaluates, rank 0 writes).
 """
 from __future__ import annotations
 
@@ -30,18 +32,21 @@ from pointcloud_segmentation_attention_tpu_torch import models
 from pointcloud_segmentation_attention_tpu_torch.data.shapenet_part import (
     ShapeNetPartH5Dataset,
 )
-from pointcloud_segmentation_attention_tpu_torch.device import resolve
+from pointcloud_segmentation_attention_tpu_torch.parallel.mesh import (
+    data_parallel,
+    enter_world,
+    reduce_metrics,
+)
 from pointcloud_segmentation_attention_tpu_torch.models.pointnet1 import orthogonality_loss
 from pointcloud_segmentation_attention_tpu_torch.train import losses, schedules
 from pointcloud_segmentation_attention_tpu_torch.train.checkpoints import BestKeeper
-from pointcloud_segmentation_attention_tpu_torch.train.cls_trainer import refuse_devices
 from pointcloud_segmentation_attention_tpu_torch.train.steps import (
     _device_of,
     _dropout_generator,
     _to_device,
 )
 from pointcloud_segmentation_attention_tpu_torch.train.train_state import TrainState
-from pointcloud_segmentation_attention_tpu_torch.utils.logging import MetricLogger
+from pointcloud_segmentation_attention_tpu_torch.utils.logging import MetricLogger, NoLogger
 
 V1_PARTSEG_DECAY_STEP = 16881 * 20  # the upstream train.py's DECAY_STEP
 
@@ -73,9 +78,11 @@ def joint_train_step(state: TrainState, batch: Dict, dropout_seed: int = 0, *,
     loss = seg_weight * seg_loss + (1.0 - seg_weight) * label_loss + reg_weight * ortho
     loss.backward()
     state.apply_gradients()
-    return state, {"loss": loss.detach(), "ortho_loss": ortho.detach(),
-                   "label_accuracy": _accuracy(cls_logits.detach(), batch["cls"]),
-                   "seg_accuracy": _accuracy(seg_logits.detach(), batch["labels"])}
+    out = reduce_metrics({"loss": loss, "ortho_loss": ortho,
+                          "label_accuracy": _accuracy(cls_logits.detach(), batch["cls"]),
+                          "seg_accuracy": _accuracy(seg_logits.detach(), batch["labels"])},
+                         means=("label_accuracy", "seg_accuracy"))
+    return state, {k: v.detach() for k, v in out.items()}
 
 
 def joint_eval_step(state: TrainState, batch: Dict, *, cat_num: int = 16
@@ -117,29 +124,33 @@ def train_v1_part_segmentation(
     """Returns a summary dict with the best validation part accuracy
     (``best_seg_accuracy``), the last step's ``last_ortho_loss`` and the
     step count."""
-    refuse_devices(n_devices)
+    world = enter_world(train_v1_part_segmentation, n_devices, batch_size, device, dict(locals()))
+    if world.summary is not None:
+        return world.summary
+    mesh, writer = world.mesh, world.writer  # only rank 0 writes logs and checkpoints
     train_ds = ShapeNetPartH5Dataset(train_list, batch_size, npoints, shuffle=True, seed=seed)
     val_ds = ShapeNetPartH5Dataset(val_list, batch_size, npoints, shuffle=False, seed=seed)
     # The JAX trainer reads one batch to initialise its model; the same read
     # here keeps the dataset's random stream, and so the batches, equal.
     next(train_ds.batches())
-    model = models.get_model("pointnet1_part_seg", device=resolve(device), cat_num=cat_num,
+    model = models.get_model("pointnet1_part_seg", device=world.device, cat_num=cat_num,
                              part_num=part_num, generator=torch.Generator().manual_seed(seed))
     state = TrainState(model, lambda step: schedules.upstream_learning_rate(
         step, base_lr, batch_size, V1_PARTSEG_DECAY_STEP, decay_rate=0.5))
     bn = lambda step: schedules.upstream_bn_momentum(  # noqa: E731
         step, batch_size, 2.0 * V1_PARTSEG_DECAY_STEP)
-    logger = MetricLogger(log_dir, "v1_part_seg")
-    best = BestKeeper(os.path.join(log_dir, "checkpoints"))
+    logger = MetricLogger(log_dir, "v1_part_seg") if writer else NoLogger()
+    best = BestKeeper(os.path.join(log_dir, "checkpoints"), write=writer)
 
+    train_step = data_parallel(joint_train_step, mesh)
     steps = 0
     summary = {}
     for _ in range(epochs):
         epoch_metrics = []
         for pts, cls, seg in train_ds.batches():
-            state, m = joint_train_step(state, {"points": pts, "cls": cls, "labels": seg},
-                                        seed, bn_schedule=bn, seg_weight=seg_weight,
-                                        reg_weight=reg_weight, cat_num=cat_num)
+            state, m = train_step(state, {"points": pts, "cls": cls, "labels": seg},
+                                  seed, bn_schedule=bn, seg_weight=seg_weight,
+                                  reg_weight=reg_weight, cat_num=cat_num)
             epoch_metrics.append(m)  # device scalars, fetched at the epoch's end
             steps += 1
             if max_steps and steps >= max_steps:

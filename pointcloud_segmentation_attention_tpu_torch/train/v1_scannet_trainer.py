@@ -6,9 +6,10 @@ reference's ``pointnet2_tensorflow/scannet/train.py``): per-batch random
 point dropout (``get_batch_wdp``), z-rotation augmentation, and the
 whole-scene pass reporting the surface-voxel 'calibrated' accuracy beside
 the point accuracy and mIoU.  ``train_scannet_v1(..., device=)`` trains
-the xyz-only ``sem_seg`` model (21 classes) with ``seg_train_step`` on one
-device; ``n_devices`` other than ``None`` or 1 raises
-``NotImplementedError`` (ROADMAP Queue 1 item 7).
+the xyz-only ``sem_seg`` model (21 classes) with ``seg_train_step``.
+``n_devices`` > 1 trains data-parallel as ``trainer.train`` does
+(spawned ranks, or the ranks of a process group; global BN statistics,
+loss, gradients and metrics; every rank evaluates, rank 0 writes).
 
 Every host draw comes from one ``np.random.RandomState(seed)`` in the JAX
 package's order (the datasets' own streams, then per batch each sample's
@@ -31,11 +32,13 @@ from pointcloud_segmentation_attention_tpu_torch.data.scannet.v1_compat import (
     ScannetDatasetVirtualScan,
     ScannetDatasetWholeScene,
 )
-from pointcloud_segmentation_attention_tpu_torch.device import resolve
+from pointcloud_segmentation_attention_tpu_torch.parallel.mesh import (
+    data_parallel,
+    enter_world,
+)
 from pointcloud_segmentation_attention_tpu_torch.train import schedules
 from pointcloud_segmentation_attention_tpu_torch.train.cls_trainer import (
     epoch_mean,
-    refuse_devices,
 )
 from pointcloud_segmentation_attention_tpu_torch.train.metrics import StreamingMeanIoU
 from pointcloud_segmentation_attention_tpu_torch.train.steps import (
@@ -43,7 +46,7 @@ from pointcloud_segmentation_attention_tpu_torch.train.steps import (
     seg_train_step,
 )
 from pointcloud_segmentation_attention_tpu_torch.train.train_state import TrainState
-from pointcloud_segmentation_attention_tpu_torch.utils.logging import MetricLogger
+from pointcloud_segmentation_attention_tpu_torch.utils.logging import MetricLogger, NoLogger
 from pointcloud_segmentation_attention_tpu_torch.utils.pc_util import (
     calibrated_voxel_accuracy,
     point_cloud_label_to_surface_voxel_label_fast,
@@ -116,7 +119,10 @@ def train_scannet_v1(
     (depth-camera visibility subsampling from 8 camera positions) or
     ``whole`` (full-coverage grid chunks, each scene's stack flattened into
     the batch loop), the reference's commented dataset swap."""
-    refuse_devices(n_devices)
+    world = enter_world(train_scannet_v1, n_devices, batch_size, device, dict(locals()))
+    if world.summary is not None:
+        return world.summary
+    mesh, writer = world.mesh, world.writer  # only rank 0 writes logs and checkpoints
     if dataset_kind == "virtual":
         train_ds = _FlattenedStacked(
             ScannetDatasetVirtualScan(data_root, train_scenes, npoints, "train", seed))
@@ -128,14 +134,15 @@ def train_scannet_v1(
     else:
         raise ValueError(f"unknown dataset_kind '{dataset_kind}'")
     whole_ds = ScannetDatasetWholeScene(data_root, val_scenes, npoints, seed)
-    model = models.get_model("sem_seg", device=resolve(device), num_classes=NUM_CLASSES,
+    model = models.get_model("sem_seg", device=world.device, num_classes=NUM_CLASSES,
                              generator=torch.Generator().manual_seed(seed))
     state = TrainState(model, lambda step: schedules.upstream_learning_rate(
         step, 1e-3, batch_size))
     bn = lambda step: schedules.upstream_bn_momentum(step, batch_size, DECAY_STEP)  # noqa: E731
     np_rng = np.random.RandomState(seed)
-    logger = MetricLogger(log_dir, "scannet_v1")
+    logger = MetricLogger(log_dir, "scannet_v1") if writer else NoLogger()
 
+    train_step = data_parallel(seg_train_step, mesh)
     steps = 0
     summary = {}
     n = len(train_ds)
@@ -145,8 +152,8 @@ def train_scannet_v1(
         for start in range(0, n - batch_size + 1, batch_size):
             pts, lab, w = get_batch_wdp(train_ds, idxs, start, batch_size, npoints, np_rng)
             pts = rotate_point_cloud_z(pts, rng=np_rng)
-            state, m = seg_train_step(state, {"points": pts, "labels": lab, "weights": w},
-                                      seed, bn_schedule=bn)
+            state, m = train_step(state, {"points": pts, "labels": lab, "weights": w},
+                                  seed, bn_schedule=bn)
             losses.append(m["loss"])  # device scalars, fetched at the epoch's end
             steps += 1
             if max_steps and steps >= max_steps:

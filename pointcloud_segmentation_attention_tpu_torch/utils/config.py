@@ -4,9 +4,8 @@ The port's own copy of the JAX package's ``utils/config.py``: the same
 fields, defaults and JSON, so a ``config.json`` written by either package
 loads in the other.  The device is not a field: it is a keyword of
 ``train.trainer.train`` and ``make_eval_state`` and the ``--device`` flag of
-``train.trainer.main``.  The field of a path the port does not run yet
-(``n_devices`` > 1) is kept so such configs load; ``train`` raises
-``NotImplementedError`` for it.
+``train.trainer.main``.  ``n_devices`` > 1 trains data-parallel
+(``train.trainer``).
 """
 from __future__ import annotations
 

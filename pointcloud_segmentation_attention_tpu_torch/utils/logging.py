@@ -1,5 +1,7 @@
 """Metric logging: a JSONL file, plus TensorBoard events when
-``torch.utils.tensorboard`` imports.
+``torch.utils.tensorboard`` imports and they are not turned off (the
+``tensorboard`` argument, or ``PSA_TENSORBOARD=0`` in the environment, which
+the ranks a run spawns inherit).
 
 One record per logged step, ``{"step", "time", <metric>: float, ...}``, in
 ``{log_dir}/{name}_metrics.jsonl``: the format of the JAX package's
@@ -10,11 +12,14 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 
 class MetricLogger:
-    def __init__(self, log_dir: str, name: str = "train", tensorboard: bool = True):
+    def __init__(self, log_dir: str, name: str = "train",
+                 tensorboard: Optional[bool] = None):
+        if tensorboard is None:
+            tensorboard = os.environ.get("PSA_TENSORBOARD", "1") != "0"
         os.makedirs(log_dir, exist_ok=True)
         self.path = os.path.join(log_dir, f"{name}_metrics.jsonl")
         self._f = open(self.path, "a")
@@ -40,6 +45,16 @@ class MetricLogger:
         self._f.close()
         if self._tb is not None:
             self._tb.close()
+
+
+class NoLogger:
+    """The logger of a data-parallel rank other than 0: writes nothing."""
+
+    def log(self, step: int, metrics: Dict[str, float]) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def read_metrics(path: str):

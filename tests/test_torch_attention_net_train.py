@@ -117,5 +117,5 @@ def test_attention_net_recipe_runs_with_jax_summary_keys(tmp_path):
     assert set(got) == set(JAX_RESULTS["attention_net"])
     assert got["final_step"] == 3 and got["model"] == "attention_net"
     assert np.isfinite(got["final_train_loss"]) and 0.0 <= got["best_val_miou"] <= 1.0
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        trecipe.run_attention_net_convergence(str(tmp_path), n_devices=2, device="cpu")
+    with pytest.raises(ValueError, match="does not divide"):
+        trecipe.run_attention_net_convergence(str(tmp_path / "dp"), n_devices=3, device="cpu")

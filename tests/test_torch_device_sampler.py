@@ -37,6 +37,7 @@ from pointcloud_segmentation_attention_tpu.ops import geometry as jgeo
 from pointcloud_segmentation_attention_tpu.train import device_sampler as jds
 from pointcloud_segmentation_attention_tpu.train import trainer as jtrainer
 from pointcloud_segmentation_attention_tpu.utils.config import TrainConfig as JConfig
+from pointcloud_segmentation_attention_tpu_torch.parallel import Mesh
 from pointcloud_segmentation_attention_tpu_torch.data.scannet.chunks import (
     CHUNK_SIZE,
     CONTEXT_MARGIN,
@@ -214,8 +215,9 @@ def test_budget_raises_before_any_body_loads():
 def test_empty_list_and_mesh_raise():
     with pytest.raises(ValueError, match="empty scene list"):
         ds.ResidentScenes([], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        ds.ResidentScenes(_mixed_scenes()[:1], device="cpu", mesh=object())
+    # A data-parallel rank's mesh puts the scenes on its device.
+    mesh = Mesh(["cpu"], world_size=2, rank=1)
+    assert ds.ResidentScenes(_mixed_scenes()[:1], device="cuda", mesh=mesh).device == mesh.device
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             ds.ResidentScenes(_mixed_scenes()[:1])

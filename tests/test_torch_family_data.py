@@ -300,8 +300,8 @@ def test_classification_trainer_main_runs_on_cpu(modelnet_roots, tmp_path):
     assert os.path.exists(os.path.join(log_dir, "cls_metrics.jsonl"))
     assert any(f.startswith("best_") and f.endswith(".npz")
                for f in os.listdir(os.path.join(log_dir, "checkpoints")))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        tcls_trainer.train_classification(root, n_devices=2, device="cpu")
+    with pytest.raises(ValueError, match="does not divide"):
+        tcls_trainer.train_classification(root, n_devices=3, batch_size=4, device="cpu")
 
 
 def test_part_segmentation_trainer_main_runs_on_cpu(shapenet_roots, tmp_path):
@@ -316,8 +316,8 @@ def test_part_segmentation_trainer_main_runs_on_cpu(shapenet_roots, tmp_path):
     assert set(got) == set(JAX_RESULTS["part_seg_msg_one_hot"]) - RECIPE_KEYS
     assert got["steps"] == 2 and 0.0 <= got["best_class_avg_iou"] <= 1.0
     assert os.path.exists(os.path.join(log_dir, "part_seg_metrics.jsonl"))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        tps_trainer.train_part_segmentation(root, n_devices=4, device="cpu")
+    with pytest.raises(ValueError, match="does not divide"):
+        tps_trainer.train_part_segmentation(root, n_devices=3, batch_size=2, device="cpu")
 
 
 @pytest.mark.parametrize("fn", ["run_cls_convergence", "run_partseg_convergence",

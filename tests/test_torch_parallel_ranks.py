@@ -1,0 +1,72 @@
+"""What the data-parallel tests run on the ranks of a ``parallel.RankPool``,
+and the one pool of two CPU ranks that a test process shares.
+
+No test lives here (``one_thread`` is an autouse fixture that the test
+modules import).
+The module imports no JAX, so a rank that unpickles one of its functions
+imports it quickly; the test modules that import JAX stay in the test
+process.
+"""
+import atexit
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from pointcloud_segmentation_attention_tpu_torch import parallel
+from pointcloud_segmentation_attention_tpu_torch.train import losses
+
+_POOL = None
+
+
+def shared_pool(config) -> parallel.RankPool:
+    """Two gloo ranks on the CPU with one thread each and TensorBoard off
+    (``PSA_TENSORBOARD=0``, which they inherit): started by the first call
+    in this process, kept for every test module that calls it later, and
+    closed when pytest's ``config`` is cleaned up (or the process exits)."""
+    global _POOL
+    if _POOL is None or _POOL.closed:
+        old = os.environ.get("PSA_TENSORBOARD")
+        os.environ["PSA_TENSORBOARD"] = "0"
+        try:
+            _POOL = parallel.RankPool(2, device="cpu", threads=1)
+        finally:
+            if old is None:
+                del os.environ["PSA_TENSORBOARD"]
+            else:
+                os.environ["PSA_TENSORBOARD"] = old
+        config.add_cleanup(_POOL.close)
+        atexit.register(_POOL.close)
+    return _POOL
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread in the test process while a module runs, as in the
+    ranks: tier-1 runs six workers on the machine's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def weighted_ce_total(logits: np.ndarray, labels: np.ndarray, weights: np.ndarray) -> float:
+    """The weighted CE of a global batch from this rank's rows: each rank's
+    share (its ``sum(w * ce)`` over the global count of non-zero weights)
+    summed over the ranks."""
+
+    def share(lg, lb, w):
+        loss = losses.weighted_softmax_cross_entropy(
+            torch.from_numpy(lg), torch.from_numpy(lb), torch.from_numpy(w))
+        return float(parallel.mesh.global_sum(loss))
+
+    mesh = parallel.make_mesh(device="cpu")
+    return parallel.data_parallel(share, mesh, batch_argnums=(0, 1, 2))(logits, labels, weights)
+
+
+def rows_of_draw(n: int) -> list:
+    """This rank's rows of ``arange`` drawn for a global batch of ``n``
+    rows a rank (``parallel.mesh.local_rows``)."""
+    with parallel.mesh.activate(parallel.make_mesh(device="cpu")):
+        return parallel.mesh.local_rows(lambda shape: torch.arange(shape[0]), (n,)).tolist()

@@ -188,8 +188,9 @@ def test_v1_partseg_trainer_summary_matches_jax(tmp_path):
     assert 0.0 <= got["best_seg_accuracy"] <= 1.0
     assert os.path.exists(tmp_path / "port" / "v1_part_seg_metrics.jsonl")
     assert any(f.startswith("best_") for f in os.listdir(tmp_path / "port" / "checkpoints"))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        tv1.train_v1_part_segmentation(train_list, val_list, n_devices=2, device="cpu")
+    with pytest.raises(ValueError, match="does not divide"):
+        tv1.train_v1_part_segmentation(train_list, val_list, n_devices=3, batch_size=4,
+                                       device="cpu")
 
 
 def test_partseg_trainer_feeds_pointnet1_seg_xyz_with_orthogonality(tmp_path):
@@ -232,5 +233,6 @@ def test_s3dis_recipe_runs_with_jax_summary_keys(tmp_path):
     assert got["model"] == "pointnet1_sem_seg" and got["steps"] > 0
     assert 0.0 <= got["best_miou"] <= 1.0
     assert os.path.exists(tmp_path / "s3dis" / "s3dis_metrics.jsonl")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        trecipe.run_s3dis_convergence(str(tmp_path), n_devices=2, device="cpu")
+    with pytest.raises(ValueError, match="does not divide"):
+        trecipe.run_s3dis_convergence(str(tmp_path / "dp"), n_devices=5, batch_size=4,
+                                      device="cpu")

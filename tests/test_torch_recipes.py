@@ -149,8 +149,10 @@ def test_main_takes_device(module, fn, monkeypatch, tmp_path, capsys):
 @pytest.mark.parametrize("fn", ["run_zero_precompute", "run_synthetic_convergence",
                                 "run_attention_ablation"])
 def test_run_refuses_devices_and_missing_card(fn, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        getattr(recipes, fn)(str(tmp_path), n_devices=2, device="cpu")
+    """A data-parallel world the trainer would refuse (a batch of 4 over 3
+    ranks) raises before any data is written."""
+    with pytest.raises(ValueError, match="does not divide"):
+        getattr(recipes, fn)(str(tmp_path), n_devices=3, device="cpu")
     assert not os.listdir(tmp_path)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

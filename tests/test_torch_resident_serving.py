@@ -32,6 +32,7 @@ from pointcloud_segmentation_attention_tpu_torch import models as tmodels
 from pointcloud_segmentation_attention_tpu_torch.data.scannet import scenes as tscenes
 from pointcloud_segmentation_attention_tpu_torch.eval import full_scene
 from pointcloud_segmentation_attention_tpu_torch.eval import resident_serving as rs
+from pointcloud_segmentation_attention_tpu_torch.parallel import Mesh
 from pointcloud_segmentation_attention_tpu_torch.train import load_jax_variables
 from test_torch_model import _flat_variables, _unflatten
 
@@ -217,9 +218,13 @@ def test_chunk_slack_guard_raises(weights):
 
 
 def test_unported_and_invalid_settings_raise(weights):
+    """Scene-per-device serving runs (``tests/test_torch_parallel_serve.py``);
+    a mesh with ``group_size`` and a 2-D mesh raise, as in the JAX server."""
     _, model = weights
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        _server(model, mesh=object())
+    with pytest.raises(ValueError, match="exclusive"):
+        _server(model, mesh=["cpu", "cpu"], group_size=2)
+    with pytest.raises(ValueError, match="1-D"):
+        _server(model, mesh=Mesh([["cpu"], ["cpu"]], axis_names=("data", "model")))
     with pytest.raises(ValueError, match="2\\*margin"):
         _server(model, chunk_size=1.5, margin=0.76)
     with pytest.raises(ValueError, match="unknown scene layout"):

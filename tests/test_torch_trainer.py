@@ -35,6 +35,12 @@ from pointcloud_segmentation_attention_tpu.data.scannet import precompute as jpr
 from pointcloud_segmentation_attention_tpu.data.scannet import scenes as jscenes
 from pointcloud_segmentation_attention_tpu.train import trainer as jtrainer
 from pointcloud_segmentation_attention_tpu.train.checkpoints import (
+    latest_checkpoint as jlatest_checkpoint,
+)
+from pointcloud_segmentation_attention_tpu.train.checkpoints import (
+    restore_checkpoint as jrestore_checkpoint,
+)
+from pointcloud_segmentation_attention_tpu.train.checkpoints import (
     save_checkpoint as jsave_checkpoint,
 )
 from pointcloud_segmentation_attention_tpu.utils.config import TrainConfig as JConfig
@@ -212,12 +218,29 @@ def test_resolve_input_mode_matches_jax(case):
 
 
 @pytest.mark.parametrize("over,message", [
-    (dict(n_devices=2), "ROADMAP Queue 1 item 7"),
+    (dict(n_devices=2, batch_size=3), "does not divide"),
 ])
-def test_unported_paths_raise(tmp_path, over, message):
-    cfg = TrainConfig(data_root=str(tmp_path), **over)
-    with pytest.raises(NotImplementedError, match=message):
-        ttrainer.train(cfg, device="cpu")
+def test_unported_paths_raise(dataset, tmp_path, monkeypatch, over, message):
+    """``n_devices=2`` from this process spawns two CPU ranks (gloo) that
+    resume from the JAX package's initial checkpoint and train; rank 0's
+    summary comes back and the JAX package restores rank 0's checkpoint
+    (world 2 against world 1: ``tests/test_torch_parallel_train.py``).  A
+    world that cannot run raises before any rank starts.  The ranks inherit
+    ``PSA_TENSORBOARD=0``: rank 0 writes no TensorBoard events."""
+    monkeypatch.setenv("PSA_TENSORBOARD", "0")
+    d, base, init = dataset
+    cfg = TrainConfig(**{**base, "log_dir": str(d / "spawned"), "n_devices": 2,
+                         "input": "resident"})
+    jsave_checkpoint(cfg.ckpt_dir, init, 0)
+    summary = ttrainer.train(cfg, device="cpu")
+    assert summary["final_step"] == STEPS and np.isfinite(summary["final_train_loss"])
+    jstate = jrestore_checkpoint(jlatest_checkpoint(cfg.ckpt_dir), init)
+    assert int(jstate.step) == STEPS
+    with pytest.raises(ValueError, match=message):
+        ttrainer.train(TrainConfig(data_root=str(tmp_path), **over), device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            ttrainer.train(TrainConfig(data_root=str(tmp_path), n_devices=2))
 
 
 @pytest.mark.parametrize("over", [dict(input="resident"), dict(device_replay=True)],

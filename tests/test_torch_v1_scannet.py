@@ -268,7 +268,7 @@ def test_train_scannet_v1_runs_each_dataset(store, tmp_path, monkeypatch, kind):
 
 def test_train_scannet_v1_refusals(store):
     root, train, val = store
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        ttrainer.train_scannet_v1(root, train, val, n_devices=2, device="cpu")
+    with pytest.raises(ValueError, match="does not divide"):
+        ttrainer.train_scannet_v1(root, train, val, n_devices=3, batch_size=2, device="cpu")
     with pytest.raises(ValueError, match="dataset_kind"):
         ttrainer.train_scannet_v1(root, train, val, dataset_kind="bogus", device="cpu")
