@@ -91,6 +91,18 @@ Phases (each raises on failure; the script then exits non-zero):
                    lanes bit-identical to one on the serve rooms, each lane
                    launching the five forward kernels; ``make_sharded_predict_fn``
                    equal to ``make_predict_fn`` on a room.
+   tensor-parallel -- (``phase_tensor_parallel``) a 2 x 2 (data x model)
+                   mesh of four ranks, one a card over NCCL on four cards,
+                   else all on ``cuda:0`` over gloo (printed): a B16 x 8192
+                   flagship step with dropout, kernels sharded over the model
+                   axis, against world 1 (``hold_dp_step``), every rank
+                   launching all seven kernels; the all-gathers,
+                   reduce-scatters and all-reduces (counts, bytes, shapes)
+                   with no weight-shaped all-gather (``hold_tp_audit``); each
+                   rank's parameter + Adam bytes below 0.6 of world 1's; the
+                   step time and the collectives' own time printed; a
+                   ``seg_predict_step`` on a B16 chunk batch whose labels
+                   equal world 1's.
    The attention slice (``ATTENTION_MODELS``, fed xyz only, as the
    reference's attention ablation ran them):
    attention-model -- ``sem_seg_attention``, ``sem_seg_attention_single_layer``
@@ -3486,9 +3498,11 @@ DP_GRAD_REL = 3e-2  # tests/test_torch_train.py's full-width limit between two f
 DP_STEP_UPDATE = 1e-3
 
 
-def hold_dp_step(one: dict, two: list, init: dict) -> dict:
-    """World 2 (every rank) against world 1, one step from the same weights
-    ``init`` and batch: loss rtol 1e-4 and BN statistics rtol 1e-4 / atol
+def hold_dp_step(one: dict, two: list, init: dict, tag: str = "data-parallel",
+                 label: str = "world 2") -> dict:
+    """World 2 (every rank; or the ranks of another world, ``label``, as the
+    tensor-parallel phase holds its 2 x 2 mesh) against world 1, one step
+    from the same weights ``init`` and batch: loss rtol 1e-4 and BN statistics rtol 1e-4 / atol
     1e-5 (``phase_train_parity``'s card limits); gradients per tensor within
     ``DP_GRAD_REL`` in relative L2 (the two worlds' BN statistics differ by
     summation order, and a ReLU and max-pool network routes some gradient
@@ -3543,16 +3557,17 @@ def hold_dp_step(one: dict, two: list, init: dict) -> dict:
             if update > DP_STEP_UPDATE:
                 fails.append(f"rank {rank} param {k}: gradient-weighted update difference "
                              f"{update:.3e} > {DP_STEP_UPDATE}")
-    for k in two[0]["params"]:
-        if not np.array_equal(two[0]["params"][k], two[1]["params"][k]):
-            fails.append(f"the ranks' {k} differ")
-    log(f"[data-parallel] world 2 vs world 1 step readings: loss rel {err['loss']:.3e}, "
+    for rank, r in enumerate(two[1:], 1):
+        for k in two[0]["params"]:
+            if not np.array_equal(two[0]["params"][k], r["params"][k]):
+                fails.append(f"rank {rank}'s {k} differs from rank 0's")
+    log(f"[{tag}] {label} vs world 1 step readings: loss rel {err['loss']:.3e}, "
         f"max |dBN| {err['bn']:.3e}, max gradient rel L2 {err['grad_rel_l2']:.3e}, noise "
         f"gradients {err['noise_grad']:.3e} of the largest, max |dparam| where determined "
         f"{err['param']:.3e}, largest gradient-weighted update difference "
         f"{err['update']:.3e} ({err['update_tensor']})")
     if fails:
-        raise AssertionError("data-parallel step: " + "; ".join(fails[:10]))
+        raise AssertionError(f"{tag} step: " + "; ".join(fails[:10]))
     return err
 
 
@@ -3831,6 +3846,160 @@ def dp_serve(model, dev, devices, npoints: int, batch: int, scene_points: int) -
                 launches_per_lane=lane_counts)
 
 
+# ---- tensor parallelism: a 2 x 2 (data x model) mesh ----------------------------------
+
+TP_MESH = (2, 2)  # (n_data, n_model), as the JAX package's graft runs make_mesh_2d(n // 2, 2)
+# A rank's parameters and Adam moments at n_model 2 must stay below this share
+# of world 1's (the sharded kernels halve; biases, BN and the classifier stay).
+TP_STATE_SHARE = 0.6
+
+
+def tp_devices(dev) -> list:
+    """The ranks' devices in the tensor-parallel phase: one rank a card
+    (NCCL) where there are four cards, else all four on ``cuda:0`` over gloo
+    (NCCL refuses two ranks on one card): this phase's stated one-card
+    configuration, whose times measure correctness and overhead, not
+    scaling.  (Four CPU ranks for a CPU rehearsal.)"""
+    n = TP_MESH[0] * TP_MESH[1]
+    if dev.type == "cpu":
+        return [dev] * n
+    if torch.cuda.device_count() >= n:
+        return [torch.device("cuda", r) for r in range(n)]
+    return [torch.device("cuda", 0)] * n
+
+
+def hold_tp_audit(ranks: list, rows: int) -> list:
+    """The collective audit of the tensor-parallel step (the counterpart of
+    the JAX package's ``test_tp_hlo_no_full_kernel_allgathers``): on every
+    rank no all-gather rebuilds a full kernel that the rule shards, none has
+    a rank-2 (weight-shaped) result, each is led by the rank's ``rows``; the
+    gradient all-reduce and the reduce-scatters ran.  Returns each rank's
+    {kind: (count, bytes, distinct shapes)}."""
+    model = models.get_model("sem_seg_features", device="cpu", **DP_MODEL_KW)
+    spec = parallel.state_sharding(model, parallel.make_mesh_2d(1, TP_MESH[1], device="cpu"))
+    kernels = [tuple(p.shape) for k, p in model.named_parameters() if spec[k]]
+    out = []
+    for rank, r in enumerate(ranks):
+        stats = r["collectives"]
+        whole = parallel.full_kernel_allgathers(stats, kernels)
+        gathers = stats.get("all-gather", {}).get("shapes", [])
+        bad = [sh for sh in gathers if len(sh) == 2 or sh[0] != rows]
+        if whole or bad or not gathers:
+            raise AssertionError(f"tensor-parallel rank {rank}: full-kernel all-gathers {whole}, "
+                                 f"weight-shaped or not batch-led {bad}, all-gathers {gathers}")
+        for kind in ("all-reduce", "reduce-scatter"):
+            if stats.get(kind, {}).get("count", 0) == 0:
+                raise AssertionError(f"tensor-parallel rank {rank}: no {kind} in the step")
+        out.append({k: dict(count=v["count"], bytes=v["bytes"], shapes=v["shapes"])
+                    for k, v in stats.items()})
+    return out
+
+
+def phase_tensor_parallel(dev, rooms, batch: int = 16, npoints: int = 8192) -> dict:
+    """Tensor parallelism at the flagship's full width (colors and normals),
+    B16 x 8192 global, dropout on, on a ``TP_MESH`` (data x model) mesh of
+    ``tp_devices()``'s ranks (``parallel.make_mesh_2d``,
+    ``parallel.model_parallel``: kernels sharded over the model axis,
+    column-parallel layers, B8 a data rank):
+
+    (a) one ``seg_train_step`` against world 1 in this process from the same
+        seeded weights and batch (``hold_dp_step``'s limits: loss, BN
+        statistics, the gathered gradients in relative L2, the parameters
+        where Adam's update is determined and weighted by world 1's
+        gradient; the ranks hold one replica); every rank launches all seven
+        kernels (the geometry is recomputed on each model rank, as XLA
+        replicates it over 'model'); its all-gathers, reduce-scatters and
+        all-reduces (counts, bytes, shapes) pass ``hold_tp_audit``; each
+        rank's parameter and Adam bytes stay below ``TP_STATE_SHARE`` of
+        world 1's; the step time is the median of 3 after a warm-up, and in
+        separate steps the collectives' own time (``collectives.timed``);
+    (b) ``seg_predict_step`` under ``model_parallel`` on one B16 chunk
+        batch of a seeded model: each rank's labels equal world 1's rows."""
+    devices = tp_devices(dev)
+    n_data, n_model = TP_MESH
+    per_card = len(devices) // len(set(devices))
+    rng = np.random.RandomState(19)
+    step_batch = _train_batch(rooms, rng, batch, npoints)
+    kw = dict(model_kw=DP_MODEL_KW, seed=0, dropout_seed=7, device=dev.type)
+    with parallel.RankPool(len(devices), devices=devices) as pool:
+        log(f"[tensor-parallel] {card_line()}: {n_data} x {n_model} mesh of ranks on "
+            f"{pool.devices}, backend {pool.backend}, {per_card} rank(s) a card"
+            + (" (one card: times measure correctness and overhead, not scaling)"
+               if per_card > 1 else ""))
+        out = {"devices": pool.devices, "backend": pool.backend, "ranks_per_card": per_card,
+               "mesh": TP_MESH}
+        t0 = time.perf_counter()
+        one = dist_selftest.step_outcome(step_batch, **kw)
+        ranks = pool.run(dist_selftest.step_outcome, step_batch, n_model=n_model, **kw)
+        init = {k: v.detach().numpy() for k, v in models.get_model(
+            "sem_seg_features", device="cpu", num_classes=21,
+            generator=torch.Generator().manual_seed(kw["seed"]),
+            **DP_MODEL_KW).named_parameters()}  # step_outcome's weights
+        err = hold_dp_step(one, ranks, init, tag="tensor-parallel",
+                           label=f"{n_data} x {n_model} mesh")
+        audit = hold_tp_audit(ranks, batch // n_data)
+        for rank, r in enumerate(ranks):
+            missing = [k for k in KERNEL_INFO if r["launches"][k] == 0]
+            if missing:
+                raise AssertionError(f"tensor-parallel rank {rank}: kernels not launched in its "
+                                     f"step: {missing}")
+            share = r["state_bytes"] / one["state_bytes"]
+            if share >= TP_STATE_SHARE:
+                raise AssertionError(f"tensor-parallel rank {rank}: parameter + Adam bytes "
+                                     f"{r['state_bytes']} are {share:.3f} of world 1's")
+        timed_one = dist_selftest.step_outcome(step_batch, steps=4, **kw)
+        timed = pool.run(dist_selftest.step_outcome, step_batch, steps=4, n_model=n_model, **kw)
+        # The collectives' own time, read in separate steps: timing them
+        # synchronises the card around each one.
+        comm = pool.run(dist_selftest.step_outcome, step_batch, steps=3, n_model=n_model,
+                        timed_collectives=True, **kw)
+        out["step"] = dict(
+            seconds=time.perf_counter() - t0, max_err=err, loss_world1=one["loss"][0],
+            loss_tp=ranks[0]["loss"][0], world1_step_ms=float(np.median(timed_one["step_ms"][1:])),
+            world1_state_bytes=one["state_bytes"],
+            ranks=[dict(coords=r["coords"], launches=r["launches"], collectives=a,
+                        state_bytes=r["state_bytes"],
+                        step_ms=float(np.median(t["step_ms"][1:])),
+                        collective_ms={k: v["seconds"] * 1e3 for k, v in c["collectives"].items()
+                                       if "seconds" in v},
+                        timed_step_ms=c["step_ms"][-1])
+                   for r, a, t, c in zip(ranks, audit, timed, comm)])
+        for r in out["step"]["ranks"]:
+            log(f"[tensor-parallel] rank {r['coords']}: B{batch // n_data} x {npoints} of "
+                f"B{batch}, step {r['step_ms']:.2f} ms (median of 3, host clock after sync; world "
+                f"1 {out['step']['world1_step_ms']:.2f} ms), parameter + Adam bytes "
+                f"{r['state_bytes']} of world 1's {one['state_bytes']} "
+                f"({r['state_bytes'] / one['state_bytes']:.3f}); collectives "
+                + json.dumps({k: dict(count=v["count"], bytes=v["bytes"],
+                                      ms=round(r["collective_ms"].get(k, 0.0), 2),
+                                      shapes=len(v["shapes"])) for k, v in
+                              r["collectives"].items()})
+                + f" of a {r['timed_step_ms']:.2f} ms step timed with syncs; kernels launched "
+                f"{r['launches']}")
+        log(f"[tensor-parallel] all-gather result shapes (rank (0, 0)): "
+            f"{out['step']['ranks'][0]['collectives']['all-gather']['shapes']}")
+        log(f"[tensor-parallel] {n_data} x {n_model} vs world 1 step: loss "
+            f"{ranks[0]['loss'][0]:.7f} vs {one['loss'][0]:.7f}")
+
+        # (b) the predict step on one B16 chunk batch of a seeded model.
+        state_dict = {k: v.numpy() for k, v in models.seeded_model(
+            "sem_seg_features", seed=3, device="cpu", **DP_MODEL_KW).state_dict().items()}
+        pkw = dict(state_dict=state_dict, model_kw=DP_MODEL_KW, device=dev.type)
+        want = dist_selftest.predict_outcome(step_batch["points"], step_batch["features"], **pkw)
+        got = pool.run(dist_selftest.predict_outcome, step_batch["points"],
+                       step_batch["features"], n_model=n_model, **pkw)
+        logit_err = 0.0
+        for r in got:
+            a, b = r["rows"]
+            check_equal(f"tensor-parallel predict labels, rows {a}:{b}",
+                        torch.from_numpy(r["labels"]), torch.from_numpy(want["labels"][a:b]))
+            logit_err = max(logit_err, float(np.abs(r["logits"] - want["logits"][a:b]).max()))
+        out["predict"] = dict(max_abs_logit_err=logit_err, launches=[r["launches"] for r in got])
+        log(f"[tensor-parallel] seg_predict_step on a B{batch} x {npoints} chunk batch: labels "
+            f"equal world 1's on every rank, max |logit difference| {logit_err:.3e}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script drives the GPU port",
@@ -3868,6 +4037,7 @@ def main() -> int:
     trained = phase("trainer", phase_trainer, dev)
     recipe = phase("recipe", phase_recipe, dev)
     dp = phase("data-parallel", phase_data_parallel, model, dev, rooms)
+    tpar = phase("tensor-parallel", phase_tensor_parallel, dev, rooms)
 
     # The attention slice: the three registry models at full width, then the
     # first one's train step against the CPU, its training and its forward.
@@ -4000,6 +4170,8 @@ def main() -> int:
         trainer_launches += "; data-parallel step per rank: " + " ".join(
             str(r["launches"][name]) for r in dp["step"]["ranks"]) + ", serving per lane: " + \
             " ".join(str(c.get(name, 0)) for c in dp["serve"]["launches_per_lane"])
+        trainer_launches += "; tensor-parallel step per rank: " + " ".join(
+            str(r["launches"][name]) for r in tpar["step"]["ranks"])
         log(f"[report] {name:21s} launches={launches:4d} (serve-resident window: "
             f"{resident['launches'][name]}; trainer window: {trainer_launches}) "
             f"{r['shape']}: "
@@ -4034,6 +4206,8 @@ def main() -> int:
                                                      for r in dp["step"]["ranks"]],
             "data_parallel_serve_launches_per_lane": [c.get(name, 0) for c in
                                                       dp["serve"]["launches_per_lane"]],
+            "tensor_parallel_step_launches_per_rank": [r["launches"][name]
+                                                       for r in tpar["step"]["ranks"]],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "library_device_ms": r["library_device_ms"],
@@ -4088,6 +4262,7 @@ def main() -> int:
                    "v1_scannet": v1_scannet,
                    "realdata_drill": drill,
                    "data_parallel": dp,
+                   "tensor_parallel": tpar,
                    "phase_seconds": phase_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     st, tr = dp["step"], dp["trainer"]
@@ -4101,6 +4276,17 @@ def main() -> int:
                       for tag, r in tr.items()})
         + f"; serving lanes {dp['serve']['lanes_s']:.3f} s vs one lane "
         f"{dp['serve']['single_s']:.3f} s")
+    ts = tpar["step"]
+    log(f"[report] tensor-parallel ({tpar['backend']}, {tpar['mesh'][0]} x {tpar['mesh'][1]} mesh, "
+        f"{tpar['ranks_per_card']} rank(s) a card, {phase_s['tensor-parallel']:.1f} s): step ms "
+        f"per rank {[round(r['step_ms'], 2) for r in ts['ranks']]} (world 1 "
+        f"{ts['world1_step_ms']:.2f}); parameter + Adam bytes per rank "
+        f"{[r['state_bytes'] for r in ts['ranks']]} (world 1 {ts['world1_state_bytes']}); "
+        f"collective ms of a timed step "
+        f"{[{k: round(v, 2) for k, v in r['collective_ms'].items()} for r in ts['ranks']]} "
+        f"of {[round(r['timed_step_ms'], 2) for r in ts['ranks']]}; step readings "
+        f"{json.dumps(ts['max_err'])}; predict max |logit difference| "
+        f"{tpar['predict']['max_abs_logit_err']:.3e}, labels equal")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(smi)

@@ -32,6 +32,8 @@ import torch
 from torch import nn
 
 from pointcloud_segmentation_attention_tpu_torch.nn import Dropout, PointConv
+from pointcloud_segmentation_attention_tpu_torch.nn.layers import linear
+from pointcloud_segmentation_attention_tpu_torch.parallel import act_sharding
 
 
 def _stack(module: nn.Module, prefix: str, c_in: int, widths: Sequence[int],
@@ -56,7 +58,11 @@ class TransformNet(nn.Module):
     """T-Net: per-point MLP ``tconv*``, max pool, FC stack ``tfc*``, then a
     K x K matrix ``x @ transform_w + transform_b + I``; ``transform_w`` and
     ``transform_b`` start at zero (``reset_parameters`` leaves them), so the
-    matrix starts at the identity."""
+    matrix starts at the identity.  Under tensor parallelism a sharded
+    ``transform_w`` (K*K dividing over the model axis) is column-parallel,
+    as a ``PointConv`` kernel is."""
+
+    tp_columns = ("transform_w", ("transform_b",))
 
     def __init__(self, c_in: int, k: int, mlp: Sequence[int] = (64, 128, 1024),
                  fc: Sequence[int] = (512, 256), compute_dtype: torch.dtype = torch.float32):
@@ -71,8 +77,9 @@ class TransformNet(nn.Module):
         x = _run(self, "tconv", x, 1, self.n_mlp, bn_momentum).amax(dim=1)
         x = _run(self, "tfc", x, 1, self.n_fc, bn_momentum)
         eye = torch.eye(self.k, dtype=x.dtype, device=x.device).reshape(-1)
-        t = x @ self.transform_w + self.transform_b + eye
-        return t.reshape(x.shape[0], self.k, self.k)
+        t = act_sharding.constrain_channels(
+            linear(x, self.transform_w, self.transform_b, torch.float32), self.k * self.k)
+        return (t + eye).reshape(x.shape[0], self.k, self.k)
 
 
 def orthogonality_loss(transform: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,15 @@ Data parallelism: inside a ``parallel.data_parallel`` step a train-mode
 (``_SyncBatchNorm``) and ``Dropout`` draws its mask for the global batch and
 keeps this rank's rows, so every rank computes what one device computes.
 
+Tensor parallelism: inside a ``parallel.model_parallel`` step a
+``PointConv`` or ``Dense`` whose kernel ``parallel.shard_state`` sharded
+(narrower than its bias) is column-parallel (``parallel/act_sharding.py``):
+it computes its block of output channels from the full input, with its
+block of the bias; the BN normalises that block (statistics over the data
+group only: they are per channel) and keeps its running statistics full;
+the ReLU runs on the block; then the full channels are gathered.  A
+``SharedMLP`` gathers its layers' blocks at the next layer's input.
+
 Mixed precision: ``PointConv`` and ``Dense`` take a ``compute_dtype``.
 Parameters stay float32; under ``torch.bfloat16`` the product takes both
 operands rounded to bf16 and returns float32 (``mixed_matmul``, JAX's
@@ -27,7 +36,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from pointcloud_segmentation_attention_tpu_torch.parallel import collectives
+from pointcloud_segmentation_attention_tpu_torch.parallel import act_sharding, collectives
 from pointcloud_segmentation_attention_tpu_torch.parallel.mesh import active_mesh, local_rows
 
 # Where a train-mode BN sends its running-statistics update on this thread:
@@ -102,7 +111,11 @@ class ScheduledBatchNorm(nn.Module):
     ``bn_updates(sink)`` the running-statistics update is recorded or
     skipped instead of applied (activation checkpointing).  Under an active
     data-parallel mesh the train-mode statistics, and so the running
-    averages, are the global batch's (``_SyncBatchNorm``).
+    averages, are the global batch's (``_SyncBatchNorm``).  Given a block
+    of its channels (a column-parallel layer's output), it normalises that
+    block with its block of the scale and bias and of the running
+    statistics, and updates the running statistics of every block (a sum of
+    zero-padded blocks over the model group).
     """
 
     def __init__(self, channels: int, eps: float = 1e-3):
@@ -114,25 +127,35 @@ class ScheduledBatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor, momentum: float = 0.9) -> torch.Tensor:
+        c = self.scale.shape[0]
+        block = None if x.shape[-1] == c else act_sharding.column_block(c)
+        scale, bias = (self.scale, self.bias) if block is None else (self.scale[block],
+                                                                     self.bias[block])
         if self.training:
             mesh = active_mesh()
             if mesh is not None:
-                y, mean, var = _SyncBatchNorm.apply(x, self.scale, self.bias, self.eps,
-                                                    mesh.group)
-                self._record(mean, var, momentum)
+                y, mean, var = _SyncBatchNorm.apply(x, scale, bias, self.eps, mesh.group)
+                self._record(mean, var, momentum, block)
                 return y
             axes = tuple(range(x.dim() - 1))
             mean = x.mean(dim=axes)
             var = x.var(dim=axes, unbiased=False)
-            self._record(mean, var, momentum)
-        else:
+            self._record(mean, var, momentum, block)
+        elif block is None:
             mean, var = self.mean, self.var
-        inv = torch.rsqrt(var + self.eps) * self.scale
-        return (x - mean) * inv + self.bias
+        else:
+            mean, var = self.mean[block], self.var[block]
+        inv = torch.rsqrt(var + self.eps) * scale
+        return (x - mean) * inv + bias
 
-    def _record(self, mean: torch.Tensor, var: torch.Tensor, momentum: float) -> None:
-        """Apply, record or skip the running-statistics update (``bn_updates``)."""
+    def _record(self, mean: torch.Tensor, var: torch.Tensor, momentum: float,
+                block: Optional[slice] = None) -> None:
+        """Apply, record or skip the running-statistics update (``bn_updates``);
+        a block's statistics are joined with the other blocks' first."""
         sink = getattr(_bn_sink, "value", None)
+        if block is not None and sink is not _SKIP:
+            mean, var = act_sharding.full_channels(
+                torch.stack([mean.detach(), var.detach()]), self.scale.shape[0])
         if sink is None:
             self._update(mean, var, momentum)
         elif sink is not _SKIP:
@@ -196,6 +219,17 @@ def mixed_matmul(a: torch.Tensor, b: torch.Tensor,
     return out.reshape(*batch, *out.shape[-2:])
 
 
+def linear(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+             compute_dtype: torch.dtype) -> torch.Tensor:
+    """``x @ kernel + bias`` (``mixed_matmul``); with a kernel sharded over
+    the model axis (narrower than its bias), this rank's column block of it
+    from the full input (``act_sharding.product_input``)."""
+    sharded = kernel.shape[-1] != bias.shape[-1]
+    x = act_sharding.product_input(x, kernel.shape[0], sharded)
+    y = mixed_matmul(x, kernel, compute_dtype)
+    return y + (bias[act_sharding.column_block(bias.shape[-1])] if sharded else bias)
+
+
 def _xavier_uniform_(kernel: torch.Tensor, bias: torch.Tensor,
                      generator: Optional[torch.Generator]) -> None:
     """Draw an (in, out) kernel xavier-uniform from ``generator``; zero the bias."""
@@ -211,11 +245,16 @@ class PointConv(nn.Module):
     """Pointwise (1x1) conv over the channel axis: ``x @ kernel + bias``, then
     optional BN and ReLU.  Works on any (..., C_in) tensor.  The matmul is
     ``mixed_matmul`` in ``compute_dtype`` (``torch.matmul`` in float32), as
-    the JAX package leaves it to XLA."""
+    the JAX package leaves it to XLA.  Column-parallel under tensor
+    parallelism (the module's docstring); ``gather=False`` leaves the
+    output as this rank's block (for a ``SharedMLP``'s next layer)."""
+
+    tp_columns = ("kernel", ("bias", "bn.scale", "bn.bias"))
 
     def __init__(self, c_in: int, features: int, bn: bool = True, activation: bool = True,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.features = features
         self.compute_dtype = compute_dtype
         self.kernel = nn.Parameter(torch.empty(c_in, features))
         self.bias = nn.Parameter(torch.zeros(features))
@@ -227,13 +266,14 @@ class PointConv(nn.Module):
         """Xavier-uniform kernel (Flax's default here), zero bias."""
         _xavier_uniform_(self.kernel, self.bias, generator)
 
-    def forward(self, x: torch.Tensor, bn_momentum: float = 0.9) -> torch.Tensor:
-        y = mixed_matmul(x, self.kernel, self.compute_dtype) + self.bias
+    def forward(self, x: torch.Tensor, bn_momentum: float = 0.9,
+                gather: bool = True) -> torch.Tensor:
+        y = linear(x, self.kernel, self.bias, self.compute_dtype)
         if self.bn is not None:
             y = self.bn(y, momentum=bn_momentum)
         if self.activation:
             y = torch.relu(y)
-        return y
+        return act_sharding.constrain_channels(y, self.features) if gather else y
 
 
 class SharedMLP(nn.Module):
@@ -249,8 +289,9 @@ class SharedMLP(nn.Module):
         self.out_channels = c_in
 
     def forward(self, x: torch.Tensor, bn_momentum: float = 0.9) -> torch.Tensor:
+        last = self.n_layers - 1
         for i in range(self.n_layers):
-            x = getattr(self, f"conv{i}")(x, bn_momentum=bn_momentum)
+            x = getattr(self, f"conv{i}")(x, bn_momentum=bn_momentum, gather=i == last)
         return x
 
 
@@ -258,10 +299,14 @@ class Dense(nn.Module):
     """Plain dense layer, ``x @ kernel + bias`` over the last axis: an (in,
     out) kernel drawn xavier-uniform, a zero bias (tf.layers.Dense's
     initialisers, as the JAX package's ``Dense``); the product in
-    ``compute_dtype`` (``mixed_matmul``)."""
+    ``compute_dtype`` (``mixed_matmul``); column-parallel under tensor
+    parallelism."""
+
+    tp_columns = ("kernel", ("bias",))
 
     def __init__(self, c_in: int, features: int, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.features = features
         self.compute_dtype = compute_dtype
         self.kernel = nn.Parameter(torch.empty(c_in, features))
         self.bias = nn.Parameter(torch.zeros(features))
@@ -271,7 +316,8 @@ class Dense(nn.Module):
         _xavier_uniform_(self.kernel, self.bias, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return mixed_matmul(x, self.kernel, self.compute_dtype) + self.bias
+        return act_sharding.constrain_channels(
+            linear(x, self.kernel, self.bias, self.compute_dtype), self.features)
 
 
 class Dropout(nn.Module):

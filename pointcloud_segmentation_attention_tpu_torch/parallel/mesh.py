@@ -69,11 +69,15 @@ class Mesh:
     ``devices``: an array of ``torch.device`` (1-D for data parallelism; a
     nested list gives a 2-D mesh, which data-parallel serving refuses).
     ``group``, ``rank``, ``world_size``: the process group of a training
-    mesh (``devices`` then holds this rank's device), else None, 0, 1."""
+    mesh's data axis (``devices`` then holds this rank's device), else None,
+    0, 1.  ``model_group``, ``model_rank``, ``n_model``: the model axis of a
+    tensor-parallel mesh (``parallel.tp.make_mesh_2d``), else None, 0, 1."""
 
     def __init__(self, devices: Sequence, group: Optional[dist.ProcessGroup] = None,
                  rank: int = 0, world_size: int = 1,
-                 axis_names: Sequence[str] = ("data",)):
+                 axis_names: Sequence[str] = ("data",),
+                 model_group: Optional[dist.ProcessGroup] = None, model_rank: int = 0,
+                 n_model: int = 1):
         arr = np.array(devices, dtype=object)
         self.devices = np.vectorize(_indexed, otypes=[object])(arr)
         self.axis_names = tuple(axis_names)
@@ -83,6 +87,9 @@ class Mesh:
         self.group = group
         self.rank = rank
         self.world_size = world_size
+        self.model_group = model_group
+        self.model_rank = model_rank
+        self.n_model = n_model
 
     @property
     def size(self) -> int:
@@ -94,8 +101,10 @@ class Mesh:
         return self.devices.flat[0]
 
     def __repr__(self) -> str:
+        model = (f", model_rank={self.model_rank}, n_model={self.n_model}"
+                 if self.n_model > 1 else "")
         return (f"Mesh(devices={list(self.devices.flat)}, rank={self.rank}, "
-                f"world_size={self.world_size})")
+                f"world_size={self.world_size}{model})")
 
 
 def rank_device(device="cuda") -> torch.device:
@@ -189,6 +198,8 @@ def _rows(x, mesh: Mesh):
         return x
     if isinstance(x, dict):
         return {k: _rows(v, mesh) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_rows(v, mesh) for v in x)
     n = x.shape[0]
     if n % mesh.world_size:
         raise ValueError(f"a global batch of {n} does not divide over {mesh.world_size} ranks")
@@ -197,8 +208,8 @@ def _rows(x, mesh: Mesh):
 
 
 def shard_batch(batch: Any, mesh: Optional[Mesh]) -> Any:
-    """This rank's contiguous rows of a global batch (a dict of arrays or
-    tensors, or one of them); the batch itself at world size 1.  Raises when
+    """This rank's contiguous rows of a global batch (a dict, tuple or list
+    of arrays or tensors, or one of them); the batch itself at world size 1.  Raises when
     the batch does not divide over the ranks."""
     if mesh is None or mesh.world_size == 1:
         return batch
@@ -242,20 +253,33 @@ def reduce_metrics(metrics: dict, means: Sequence[str] = ()) -> dict:
             for i, k in enumerate(keys)}
 
 
-def all_reduce_gradients(params: Sequence[torch.nn.Parameter], mesh: Mesh) -> None:
-    """Sum every ``.grad`` over the ranks in one flat all-reduce, in
-    parameter order: the counterpart of XLA's gradient psum (the reference's
-    ``average_gradients``, here a sum because each rank's loss is its share
-    of the global loss)."""
-    grads = [p.grad for p in params if p.grad is not None]
+def _sum_grads(grads: List[torch.Tensor], group) -> None:
+    """Sum ``grads`` over ``group`` in one flat all-reduce, in order."""
     if not grads:
         return
-    flat = collectives.all_reduce(torch.cat([g.reshape(-1) for g in grads]), mesh.group)
+    flat = collectives.all_reduce(torch.cat([g.reshape(-1) for g in grads]), group)
     off = 0
     for g in grads:
         n = g.numel()
         g.copy_(flat[off:off + n].view_as(g))
         off += n
+
+
+def all_reduce_gradients(params: Sequence[torch.nn.Parameter], mesh: Mesh,
+                         in_blocks: Sequence[torch.nn.Parameter] = ()) -> None:
+    """Sum every ``.grad`` over the data axis's ranks in one flat
+    all-reduce, in parameter order: the counterpart of XLA's gradient psum
+    (the reference's ``average_gradients``, here a sum because each rank's
+    loss is its share of the global loss).  On a tensor-parallel mesh the
+    gradients of ``in_blocks`` (replicated parameters that column-parallel
+    layers use a block at a time, so that each model rank holds its own
+    block's gradient: ``parallel.tp.in_blocks``) are then also summed over
+    the model axis in a second one; a sharded kernel's, and a replicated
+    parameter's used whole on every model rank, over the data axis only."""
+    if mesh.world_size > 1:
+        _sum_grads([p.grad for p in params if p.grad is not None], mesh.group)
+    if mesh.n_model > 1:
+        _sum_grads([p.grad for p in in_blocks if p.grad is not None], mesh.model_group)
 
 
 def replicate(module: torch.nn.Module, mesh: Optional[Mesh]) -> torch.nn.Module:

@@ -24,6 +24,12 @@ The checkpoint manager (``save_checkpoint``, ``latest_checkpoint``,
 keys as ``{prefix}_{step:08d}.npz`` beside a json manifest ``{"step",
 "metric", "file"}``, as the JAX package's ``train/checkpoints.py`` does, so
 each package restores the other's checkpoints.
+
+A tensor-parallel state (``parallel.shard_state``) is written at its full
+shapes, world size 1's format: every rank of its model group calls the
+export (the sharded kernels and their Adam moments are gathered) and the
+rank at mesh coordinates (0, 0) writes.  Loading goes into a full state,
+which ``parallel.shard_state`` then shards.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from pointcloud_segmentation_attention_tpu_torch.parallel import tp
 from pointcloud_segmentation_attention_tpu_torch.train.bn_fold import FoldedBatchNorm
 from pointcloud_segmentation_attention_tpu_torch.train.train_state import TrainState
 
@@ -59,7 +66,7 @@ def export_jax_variables(model: nn.Module) -> Dict[str, np.ndarray]:
     BN folded away (``train/bn_fold.py``) as the JAX fold's neutral
     entries."""
     state = model.state_dict()
-    flat = {k: state[name].detach().cpu().numpy().copy()
+    flat = {k: tp.full_tensor(model, name, state[name]).detach().cpu().numpy().copy()
             for k, name in _jax_keys(model).items()}
     for name, mod in model.named_modules():
         if isinstance(mod, FoldedBatchNorm):
@@ -103,9 +110,10 @@ def export_jax_state(state: TrainState) -> Dict[str, np.ndarray]:
     mu/nu and counts, and ``step``."""
     flat = export_jax_variables(state.model)
     opt = state.optimizer.state
-    for path, p in _param_paths(state.model).items():
+    for name, p in state.model.named_parameters():
         for jax_name, torch_name in _MOMENTS:
-            flat[_ADAM + jax_name + path] = opt[p][torch_name].detach().cpu().numpy().copy()
+            flat[_ADAM + jax_name + name.replace(".", "/")] = tp.full_tensor(
+                state.model, name, opt[p][torch_name]).detach().cpu().numpy().copy()
     for key in _COUNTS:
         flat[key] = np.asarray(state.step, np.int32)
     flat["step"] = np.asarray(state.step)
@@ -149,8 +157,12 @@ def load_jax_state(flat: Dict[str, np.ndarray], state: TrainState) -> TrainState
 
 def save_jax_checkpoint(path: str, state: TrainState) -> str:
     """Write ``export_jax_state(state)`` as one ``.npz`` that the JAX
-    package's ``restore_checkpoint`` reads; returns the path."""
-    np.savez(path, **export_jax_state(state))
+    package's ``restore_checkpoint`` reads (a tensor-parallel state: on
+    every rank of its model group, written by ``tp.checkpoint_writer``);
+    returns the path."""
+    flat = export_jax_state(state)
+    if tp.checkpoint_writer(state.model):
+        np.savez(path, **flat)
     return path
 
 
@@ -172,11 +184,14 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, step: int,
                     prefix: str = "ckpt") -> str:
     """Write ``state`` as ``{prefix}_{step:08d}.npz`` plus its json manifest;
     with ``keep_best_only`` every other checkpoint of ``prefix`` is removed.
-    Returns the npz path."""
+    A tensor-parallel state is saved by every rank of its model group and
+    written by one (``save_jax_checkpoint``).  Returns the npz path."""
     os.makedirs(ckpt_dir, exist_ok=True)
     name = f"{prefix}_{step:08d}"
     path = os.path.join(ckpt_dir, name + ".npz")
     save_jax_checkpoint(path, state)
+    if not tp.checkpoint_writer(state.model):
+        return path
     with open(os.path.join(ckpt_dir, name + ".json"), "w") as f:
         json.dump({"step": int(step), "metric": metric, "file": name + ".npz"}, f)
     if keep_best_only:

@@ -13,7 +13,9 @@ the model's device on the current stream and decoded there.
 Inside a data-parallel step (``parallel.data_parallel``) a step runs on
 this rank's rows of the global batch, and its BN statistics, loss
 normaliser, gradients and metrics are the global batch's: 'loss',
-'accuracy' and 'confusion' equal world size 1's on every rank.
+'accuracy' and 'confusion' equal world size 1's on every rank.  Inside a
+tensor-parallel step (``parallel.model_parallel``) the same holds on every
+rank of the 2-D mesh, with the kernels sharded over its model axis.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from torch import nn
 from torch.utils import checkpoint
 
 from pointcloud_segmentation_attention_tpu_torch.nn.layers import apply_bn_updates, bn_updates
+from pointcloud_segmentation_attention_tpu_torch.parallel import act_sharding
 from pointcloud_segmentation_attention_tpu_torch.parallel.mesh import (
     activate,
     active_mesh,
@@ -185,13 +188,14 @@ def _loss_and_logits(model: nn.Module, batch: Dict[str, torch.Tensor], bn_moment
     records: list = []
     rng_state = generator.get_state()
     mesh = active_mesh()  # the recomputation may run on autograd's thread
+    model_mesh = act_sharding.model_mesh()
 
     def contexts():
         first, again = ((contextlib.nullcontext(), contextlib.nullcontext()) if remat == "full"
                         else checkpoint.create_selective_checkpoint_contexts(_dots_saveable))
         return (_entered(first, bn_updates(records)),
                 _entered(again, bn_updates(None), _restored(generator, rng_state),
-                         activate(mesh)))
+                         activate(mesh), act_sharding.activation_sharding(model_mesh)))
 
     loss, logits = checkpoint.checkpoint(run, batch["points"], batch.get("features"),
                                          use_reentrant=False, context_fn=contexts,

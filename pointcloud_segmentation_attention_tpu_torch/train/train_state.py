@@ -11,7 +11,12 @@ a JAX checkpoint's ``mu``/``nu``/``count`` can be loaded into it before the
 first step (``train/checkpoints.py``).  Inside a data-parallel step the
 gradients are summed across ranks before the update (one flat all-reduce,
 ``parallel.mesh.all_reduce_gradients``), so every rank applies the same
-update.
+update.  Inside a tensor-parallel step (``parallel.model_parallel``) each
+gradient is summed by its parameter's kind: a sharded kernel's and a
+replicated parameter's used whole over the data group, a replicated
+parameter's used in blocks (``parallel.tp.in_blocks``) over the data and the
+model group; Adam's moments take the sharded shapes (``parallel.shard_state``
+rebuilds the optimizer).
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ from typing import Callable
 import torch
 from torch import nn
 
+from pointcloud_segmentation_attention_tpu_torch.parallel import act_sharding, tp
 from pointcloud_segmentation_attention_tpu_torch.parallel.mesh import (
     active_mesh,
     all_reduce_gradients,
@@ -53,9 +59,10 @@ class TrainState:
     def apply_gradients(self) -> float:
         """One Adam update from the parameters' ``.grad`` (summed over the
         ranks of an active mesh first); returns the LR used."""
-        mesh = active_mesh()
+        mesh = act_sharding.model_mesh() or active_mesh()
         if mesh is not None:
-            all_reduce_gradients(list(self.model.parameters()), mesh)
+            all_reduce_gradients(list(self.model.parameters()), mesh,
+                                 tp.in_blocks(self.model))
         lr = self.lr_schedule(self.step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr

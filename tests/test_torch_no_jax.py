@@ -17,8 +17,8 @@ BN-folded model through ``ResidentSceneServer``, trains ``cls_msg`` and
 ``part_seg_msg_one_hot`` through the family recipes, ``attention_net``
 through ``train`` (npz and the resident corpus) and serves a room with it,
 and trains ``pointnet1_cls``, ``pointnet1_sem_seg`` (S3DIS) and the v1
-joint part segmenter through their trainers.  The data-parallel modules
-(``parallel/``) are among those it imports.
+joint part segmenter through their trainers.  The data- and
+tensor-parallel modules (``parallel/``) are among those it imports.
 """
 import fnmatch
 import os
@@ -62,7 +62,8 @@ for name in ("eval.resident_serving", "train.bn_fold", "train.device_replay",
              "data.scannet.v1_compat", "train.v1_scannet_trainer",
              "data.scannet.preprocessing", "recipes.realdata_drill", "viz", "viz.palette",
              "viz.ply_export", "viz.curves", "viz.animations", "parallel", "parallel.mesh",
-             "parallel.dist", "parallel.collectives", "parallel.dist_selftest"):
+             "parallel.dist", "parallel.collectives", "parallel.dist_selftest", "parallel.tp",
+             "parallel.act_sharding"):
     assert f"{port.__name__}.{name}" in modules, name
 
 import numpy as np

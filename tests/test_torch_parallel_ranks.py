@@ -1,5 +1,6 @@
-"""What the data-parallel tests run on the ranks of a ``parallel.RankPool``,
-and the one pool of two CPU ranks that a test process shares.
+"""What the data- and tensor-parallel tests run on the ranks of a
+``parallel.RankPool``, and the one pool of two CPU ranks that a test
+process shares.
 
 No test lives here (``one_thread`` is an autouse fixture that the test
 modules import).
@@ -70,3 +71,46 @@ def rows_of_draw(n: int) -> list:
     rows a rank (``parallel.mesh.local_rows``)."""
     with parallel.mesh.activate(parallel.make_mesh(device="cpu")):
         return parallel.mesh.local_rows(lambda shape: torch.arange(shape[0]), (n,)).tolist()
+
+
+def forward_backward(name: str, model_kw: dict, inputs: tuple, weights: tuple,
+                     n_model=None) -> dict:
+    """A train-mode forward of registry model ``name`` (drawn from seed 0)
+    on the global batch ``inputs``, the loss ``sum(output * weight)`` over
+    its outputs, and the backward: on one device, or with ``n_model`` under
+    ``parallel.model_parallel`` on the world's ``make_mesh_2d`` (this rank's
+    rows), the gradients then summed as ``TrainState.apply_gradients`` sums
+    them.  Returns host values: 'outputs' (this rank's rows), 'rows', and
+    'grads' at their full shapes."""
+    from pointcloud_segmentation_attention_tpu_torch import models
+    from pointcloud_segmentation_attention_tpu_torch.parallel import tp
+
+    model = models.get_model(name, device="cpu", generator=torch.Generator().manual_seed(0),
+                             **model_kw)
+
+    def step(model, inputs, weights):
+        out = model(*(torch.from_numpy(a) for a in inputs))
+        outs = [t for t in (out if isinstance(out, tuple) else (out,)) if torch.is_tensor(t)]
+        outs += [t for t in (out[-1].values() if isinstance(out[-1], dict) else ())]
+        if weights:
+            sum((t * torch.from_numpy(w)).sum() for t, w in zip(outs, weights)).backward()
+        mesh = parallel.active_mesh()
+        model_mesh = parallel.act_sharding.model_mesh()
+        if model_mesh is not None:
+            parallel.all_reduce_gradients(list(model.parameters()), model_mesh,
+                                          tp.in_blocks(model))
+        return [t.detach().numpy() for t in outs], mesh
+
+    rows = (0, len(inputs[0]))
+    if n_model is None:
+        outs, _ = step(model, inputs, weights)
+    else:
+        mesh = parallel.make_mesh_2d(parallel.mesh.world_size() // n_model, n_model,
+                                     device="cpu")
+        outs, _ = parallel.model_parallel(step, mesh, model, batch_argnums=(1, 2))(
+            model, inputs, weights)
+        b = len(inputs[0]) // mesh.world_size
+        rows = (mesh.rank * b, (mesh.rank + 1) * b)
+    return dict(outputs=outs, rows=rows,
+                grads={k: tp.full_tensor(model, k, p.grad).numpy() for k, p in
+                       model.named_parameters() if p.grad is not None})
