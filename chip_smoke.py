@@ -7,7 +7,8 @@ Run from the repository root on a machine with a CUDA card:
 
 Phases (each raises on failure; the script then exits non-zero):
 
-1. build        -- compile the host grid assignment (``native/``) with g++,
+1. build        -- compile the host library (``native/``: grid assignment,
+                   renderer, three-NN and ball query) with g++,
                    then the seven CUDA kernels from ``csrc/`` with nvcc
                    (sm_90a), one nvcc per source, all started together.
 2. model        -- full-width ``sem_seg_features`` with seeded weights and BN
@@ -193,6 +194,27 @@ Phases (each raises on failure; the script then exits non-zero):
                    1.0; the room's labels rendered by ``rotation_animation``,
                    ``render_ball`` (C++) equal to ``render_ball_numpy`` byte
                    for byte on a frame's points and to the frame's PNG.
+   The measurement tools and host oracles (``utils/``, ``native/``):
+   measure-tools -- ``h2d_bench`` (pageable and pinned: sweep, fit, swept
+                   again while degenerate, up to 3 sweeps; the pinned fit
+                   must not stay degenerate; overlap beside a matmul chain,
+                   the feeder on its own stream), ``bench_ops`` (op rows at
+                   B16 x 8192 and the f32 and bf16 step and forward rows,
+                   each row's kernels launched on every call and no other
+                   kernel), the implied floors of the four wire formats
+                   against this run's f32 step, ``mem_analysis`` for the
+                   three ``remat`` modes beside the remat phase's
+                   ``max_memory_allocated``; after device-times
+                   (measure-tools-trace), ``utils.trace`` around a B16
+                   forward, whose Chrome trace must hold CUDA kernel events
+                   (a session without is made again, up to 4).
+   native-oracles -- the ball query kernel at SA1-4 and three-NN at FP1-4
+                   of a B16 x 8192 cloud against the host C++
+                   (``native.ball_query``, ``native.three_nn``): 0
+                   differing rows, distances within ``NN_DIST_TOL``; on
+                   points placed on the radius and on near-tied known
+                   points, the differing rows counted, every one a boundary
+                   row.
 7. kernels      -- every forward kernel against its plain PyTorch version on
                    the card at the B16 shapes (SA1-4, FP1-4) and at a large N;
                    all outputs equal bit for bit.  FPS, ball query,
@@ -366,6 +388,12 @@ from pointcloud_segmentation_attention_tpu_torch.train import latest_checkpoint 
 from pointcloud_segmentation_attention_tpu_torch.train.checkpoints import (  # noqa: E402
     export_jax_variables,
 )
+from pointcloud_segmentation_attention_tpu_torch.utils import (  # noqa: E402
+    bench_ops,
+    h2d_bench,
+    mem_analysis,
+    trace,
+)
 from pointcloud_segmentation_attention_tpu_torch.viz import (  # noqa: E402
     animations,
     colorize_labels,
@@ -492,7 +520,7 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor, tol: dict) -> 
 def phase_build() -> None:
     t0 = time.perf_counter()
     native.build()
-    log(f"[build] host grid assignment built with g++ in {time.perf_counter() - t0:.1f} s "
+    log(f"[build] host library built with g++ in {time.perf_counter() - t0:.1f} s "
         f"-> {os.path.relpath(native.library_path(), ROOT)}")
     t0 = time.perf_counter()
     kernels.build(verbose=True)
@@ -4000,6 +4028,239 @@ def phase_tensor_parallel(dev, rooms, batch: int = 16, npoints: int = 8192) -> d
     return out
 
 
+# ---- the measurement tools and the host oracles ----------------------------------
+
+H2D_ITERS = 20
+H2D_SWEEPS = 3  # a degenerate fit is swept again, up to this many sweeps in all
+TRACE_SESSIONS = 4
+# Three-NN distances: the kernel's float32 sum of three rounded squares
+# against the host's float64 sum rounded once (a few float32 ulps apart).
+NN_DIST_TOL = dict(rtol=1e-6, atol=1e-9)
+
+
+def _link(dev, pinned: bool) -> dict:
+    """``h2d_bench`` sweep and fit of one route (swept again while the fit is
+    degenerate, up to ``H2D_SWEEPS``), and its overlap with compute."""
+    route = "pinned" if pinned else "pageable"
+    for sweep in range(1, H2D_SWEEPS + 1):
+        rows = h2d_bench.sweep(iters=H2D_ITERS, device=dev, pinned=pinned)
+        fit = h2d_bench.fit_latency_bandwidth(rows)
+        log(f"[measure-tools] {route} sweep {sweep}: " + " ".join(
+            f"{r['mb']}MB={r['ms']:.4f}ms" for r in rows) + f"; fit {json.dumps(fit)}")
+        if not fit.get("degenerate"):
+            break
+    ov = h2d_bench.overlap(device=dev, pinned=pinned)
+    log(f"[measure-tools] {route} overlap, {ov['payload_mb']} MB copies beside "
+        f"{ov['matmuls_per_burn']} 2048^2 f32 matmuls a burn: compute {ov['compute_ms']:.3f} ms "
+        f"a burn (again after the feeder: {ov['compute_again_ms']:.3f}), copy "
+        f"{ov['transfer_ms']:.3f} ms, compute beside the feeder {ov['interleaved_compute_ms']:.3f} "
+        f"ms ({ov['feeder_copies']} copies), overlap_efficiency {ov['overlap_efficiency']:.3f}")
+    if ov["feeder_copies"] == 0:
+        raise AssertionError(f"measure-tools: the {route} feeder made no copy beside the compute")
+    return dict(sweep=rows, fit=fit, sweeps=sweep, overlap=ov)
+
+
+def _hold_row_launches(row: dict) -> None:
+    """Every kernel of the row launched on each call, and no other kernel."""
+    want = bench_ops.row_kernels(row["op"])
+    short = {k: row["launches"].get(k, 0) for k in want if row["launches"].get(k, 0) < row["calls"]}
+    extra = set(row["launches"]) - set(want)
+    if short or extra:
+        raise AssertionError(f"measure-tools: {row['op']!r} over {row['calls']} calls launched "
+                             f"{row['launches']}: short {short}, unexpected {sorted(extra)}")
+
+
+def phase_measure_tools(dev, remat: dict, batch: int = 16, n: int = 8192) -> dict:
+    """The port's measurement tools on the card: ``h2d_bench`` (pageable and
+    pinned sweeps, fits and overlaps; the pinned fit must not be
+    degenerate), ``bench_ops`` (op rows at B16 x 8192 and the flagship's
+    step and forward rows in f32 and bf16, each row's kernels launched on
+    every call and no other), the implied floors of each wire format
+    against this run's f32 step, and ``mem_analysis`` for the three
+    ``remat`` modes beside ``phase_remat``'s ``max_memory_allocated``."""
+    out = {"pageable": _link(dev, False), "pinned": _link(dev, True)}
+    if out["pinned"]["fit"].get("degenerate"):
+        raise AssertionError(f"measure-tools: the pinned fit stayed degenerate over "
+                             f"{H2D_SWEEPS} sweeps")
+    rows = bench_ops.op_rows(batch, n, dev) + bench_ops.step_rows(batch, n, dev)
+    for row in rows:
+        _hold_row_launches(row)
+    log(f"[measure-tools] bench_ops on {rows[0]['device']}, B{batch} x {n} (ms a call, "
+        f"{'CUDA events' if dev.type == 'cuda' else 'host clock'}, median of 3 windows):")
+    for line in bench_ops.format_rows(rows).splitlines():
+        log(f"[measure-tools]   {line}")
+    out["rows"] = rows
+    step_ms = next(r["ms"] for r in rows if r["op"] == "train_step[float32]")
+    out["floors"] = {route: h2d_bench.implied_flagship_floors(out[route]["fit"], step_ms,
+                                                              batch, n)
+                     for route in ("pageable", "pinned")}
+    for route, floors in out["floors"].items():
+        log(f"[measure-tools] implied floors, {route} copies, against the f32 step of "
+            f"{step_ms:.3f} ms: " + "; ".join(
+                f"{k} {f['bytes']} B in {f['calls']} copies {f['transfer_ms']:.4f} ms -> "
+                f"{f['pts_per_s_if_serialized']:.0f} pts/s serialized, "
+                f"{f['pts_per_s_if_overlapped']:.0f} overlapped" for k, f in floors.items()))
+    out["memory"] = mem_analysis.analyze(batch, n, device=dev)
+    for r in out["memory"]:
+        if not 0 < r["argument_mb"] < r["peak_mb"] or r["output_mb"] <= 0:
+            raise AssertionError(f"measure-tools: mem_analysis row {r}")
+        log(f"[measure-tools] mem_analysis remat={r['remat']}: arguments "
+            f"{r['argument_mb']:.1f} MiB, peak {r['peak_mb']:.1f} MiB, temp {r['temp_mb']:.1f} "
+            f"MiB, outputs {r['output_mb']:.4f} MiB, held beside {r['held_mb']:.1f} MiB; "
+            f"remat phase max_memory_allocated {remat[r['remat']]['peak_bytes'] / 2**20:.1f} MiB")
+    return out
+
+
+def phase_measure_tools_trace(dev, batch: int = 16, n: int = 8192) -> dict:
+    """``utils.trace`` around one B16 x 8192 eval forward: its Chrome trace
+    must hold CUDA kernel events.  A session that recorded none is logged
+    and made again, up to ``TRACE_SESSIONS`` in all (as ``device_ms``)."""
+    from pointcloud_segmentation_attention_tpu_torch.train import seg_predict_step
+
+    model = models.seeded_model("sem_seg_features", seed=0, device=dev)
+    pts, feats = _forward_inputs(model, dev, batch, n)
+    seg_predict_step(model, pts, feats)
+    torch.cuda.synchronize()
+    for session in range(1, TRACE_SESSIONS + 1):
+        with tempfile.TemporaryDirectory() as d:
+            with trace(d):
+                seg_predict_step(model, pts, feats)
+                torch.cuda.synchronize()
+            files = glob.glob(os.path.join(d, "*.pt.trace.json"))
+            if len(files) != 1:
+                raise AssertionError(f"measure-tools: trace wrote {files}")
+            nbytes = os.path.getsize(files[0])
+            with open(files[0]) as f:
+                events = json.load(f)["traceEvents"]
+        kernel_events = [e for e in events if e.get("cat") == "kernel"]
+        if kernel_events:
+            names = sorted({e["name"] for e in kernel_events})
+            log(f"[measure-tools] trace of a B{batch} x {n} forward (session {session}): "
+                f"{len(events)} events, {len(kernel_events)} CUDA kernel events of "
+                f"{len(names)} kernels, {nbytes} bytes of Chrome trace")
+            return dict(session=session, events=len(events), kernel_events=len(kernel_events),
+                        kernels=len(names), trace_bytes=nbytes)
+        log(f"[measure-tools] trace session {session} of {TRACE_SESSIONS} recorded no CUDA "
+            f"kernel event ({len(events)} events)")
+    raise AssertionError(f"measure-tools: trace recorded no CUDA kernel event in "
+                         f"{TRACE_SESSIONS} sessions")
+
+
+def _rows_differing(got, want) -> np.ndarray:
+    """(B, M) rows where any output of ``got`` differs from ``want``."""
+    rows = np.zeros(want[0].shape[:2], bool)
+    for g, w in zip(got, want):
+        rows |= (np.asarray(g) != w).reshape(rows.shape + (-1,)).any(-1)
+    return rows
+
+
+def boundary_inputs(seed: int = 7):
+    """Inputs that put the host oracles and the float32 kernels at odds
+    (tests/test_torch_native_geometry.py makes the same kind): B2, 64
+    centres with 32 points each exactly on the radius 0.2 and 64 centres in
+    2048 uniform points (ball query); 128 points each repeated 4 times
+    with 0-2 float32 ulps of jitter as the known points of 256 queries
+    (three-NN near-ties)."""
+    rng = np.random.RandomState(seed)
+    centres = (rng.rand(2, 64, 3) * EXTENT).astype(np.float32)
+    d = rng.randn(2, 64, 32, 3)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    sphere = (centres[:, :, None] + 0.2 * d).astype(np.float32).reshape(2, -1, 3)
+    uniform = (rng.rand(2, 2048, 3) * EXTENT).astype(np.float32)
+    xyz = np.concatenate([sphere, uniform], axis=1)
+    centres = np.concatenate([centres, uniform[:, rng.choice(2048, 64, replace=False)]], 1)
+    base = (rng.rand(2, 128, 3) * EXTENT).astype(np.float32).repeat(4, axis=1)
+    known = base + rng.randint(-2, 3, base.shape).astype(np.float32) * np.spacing(base)
+    unknown = (rng.rand(2, 256, 3) * EXTENT).astype(np.float32)
+    return (xyz, centres, 0.2), (unknown, known)
+
+
+def boundary_rows(a: np.ndarray, b: np.ndarray, radius: Optional[float] = None) -> np.ndarray:
+    """With ``radius``: rows of centres ``b`` with a point of ``a`` whose
+    squared distance (float32 differences summed in float64) is within 4
+    float32 ulps of radius**2.  Without: rows of queries ``a`` whose 4
+    nearest points of ``b`` hold two squared distances within 4 ulps."""
+    if radius is not None:
+        d2 = ((b[:, :, None, :] - a[:, None, :, :]).astype(np.float64) ** 2).sum(-1)
+        r2 = np.float32(radius) ** 2
+        return (np.abs(d2 - r2) / np.float64(np.spacing(r2)) <= 4).any(-1)
+    d2 = ((b[:, None, :, :] - a[:, :, None, :]).astype(np.float64) ** 2).sum(-1)
+    near = np.sort(d2, -1)[..., :4]
+    return (np.diff(near, axis=-1) / np.spacing(near[..., 1:].astype(np.float32)) <= 4).any(-1)
+
+
+def phase_native_oracles(dev, batch: int = 16, n: int = 8192) -> dict:
+    """The card's ball query at SA1-4 and three-NN at FP1-4 of a B16 x 8192
+    cloud (centres by the FPS kernel, each level from the one below) against
+    the port's host C++ (``native.ball_query``, ``native.three_nn``) on the
+    same inputs: 0 differing rows (the CPU tests find the C++ and the plain
+    versions in agreement at these shapes), three-NN distances within
+    ``NN_DIST_TOL``.  Then on ``boundary_inputs``: the differing rows
+    counted, each one a boundary row.  Launch counters read before and
+    after: every SA/FP call reached its kernel."""
+    rng = np.random.RandomState(5)
+    before = kernels.launch_counts()
+    levels = [torch.from_numpy((rng.rand(batch, n, 3) * EXTENT).astype(np.float32)).to(dev)]
+    for npoint in sem_seg.SA_NPOINTS:
+        levels.append(ops.gather_point(levels[-1], ops.farthest_point_sample(levels[-1],
+                                                                             npoint)))
+    host = [x.cpu().numpy() for x in levels]
+    out = {"levels": {}}
+    ns = sem_seg.SA_NSAMPLE
+    for i, radius in enumerate(sem_seg.SA_RADII):
+        got = [t.cpu().numpy() for t in ops.ball_query(levels[i], levels[i + 1], radius, ns)]
+        t0 = time.perf_counter()
+        want = native.ball_query(host[i], host[i + 1], radius, ns)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        rows = int(_rows_differing(got, want).sum())
+        out["levels"][f"SA{i + 1}"] = dict(rows=rows, of=int(want[1].size), host_ms=host_ms)
+        log(f"[native-oracles] ball query SA{i + 1} (N {host[i].shape[1]}, M "
+            f"{host[i + 1].shape[1]}, r {radius}): {rows} of {want[1].size} rows differ from "
+            f"the host C++ ({host_ms:.1f} ms)")
+    for j in range(1, 5):
+        unknown, known = host[4 - j], host[5 - j]
+        dist, idx = (t.cpu().numpy() for t in ops.three_nn(levels[4 - j], levels[5 - j]))
+        t0 = time.perf_counter()
+        hdist, hidx = native.three_nn(unknown, known)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        rows = int(_rows_differing([idx], [hidx]).sum())
+        err = check_close(f"native-oracles three-NN distances FP{j}", torch.from_numpy(dist),
+                          torch.from_numpy(hdist), NN_DIST_TOL)
+        out["levels"][f"FP{j}"] = dict(rows=rows, of=int(hidx.shape[0] * hidx.shape[1]),
+                                       max_abs_dist_err=err, host_ms=host_ms)
+        log(f"[native-oracles] three-NN FP{j} (N {unknown.shape[1]} from M {known.shape[1]}): "
+            f"{rows} of {hidx.shape[0] * hidx.shape[1]} rows differ from the host C++, "
+            f"max |distance difference| {err:.3e} ({host_ms:.1f} ms)")
+    bad = {k: v["rows"] for k, v in out["levels"].items() if v["rows"]}
+    if bad:
+        raise AssertionError(f"native-oracles: rows differ from the host C++: {bad}")
+    (xyz, centres, radius), (unknown, known) = boundary_inputs()
+    t = torch.from_numpy
+    got = [x.cpu().numpy() for x in ops.ball_query(t(xyz).to(dev), t(centres).to(dev), radius,
+                                                   ns)]
+    bq = _rows_differing(got, native.ball_query(xyz, centres, radius, ns))
+    bq_edge = boundary_rows(xyz, centres, radius)
+    got = ops.three_nn(t(unknown).to(dev), t(known).to(dev))[1].cpu().numpy()
+    nn = _rows_differing([got], [native.three_nn(unknown, known)[1]])
+    nn_edge = boundary_rows(unknown, known)
+    out["boundary"] = dict(ball_query=dict(rows=int(bq.sum()), boundary=int(bq_edge.sum()),
+                                           of=int(bq.size)),
+                           three_nn=dict(rows=int(nn.sum()), boundary=int(nn_edge.sum()),
+                                         of=int(nn.size)))
+    log(f"[native-oracles] boundary inputs: ball query {int(bq.sum())} of {bq.size} rows "
+        f"differ from the host C++ ({int(bq_edge.sum())} rows have a point within 4 ulps of "
+        f"the radius); three-NN {int(nn.sum())} of {nn.size} ({int(nn_edge.sum())} rows hold a "
+        f"near-tie)")
+    if (bq & ~bq_edge).any() or (nn & ~nn_edge).any():
+        raise AssertionError("native-oracles: a row off the boundary differs from the host C++")
+    after = kernels.launch_counts()
+    out["launches"] = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    want = {"fps": 4, "ball_query": 5, "three_nn": 5}  # SA1-4, FP1-4, the boundary inputs
+    if dev.type == "cuda" and any(out["launches"].get(k, 0) < v for k, v in want.items()):
+        raise AssertionError(f"native-oracles: launches {out['launches']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script drives the GPU port",
@@ -4104,6 +4365,8 @@ def main() -> int:
     attnet_recipe = phase("attention-net-recipe", phase_attention_net_recipes, dev)
     v1_scannet = phase("v1-scannet", phase_v1_scannet, dev)
     drill = phase("realdata-drill", phase_realdata_drill, dev)
+    tools = phase("measure-tools", phase_measure_tools, dev, remat)
+    oracles = phase("native-oracles", phase_native_oracles, dev)
     rep, geom = phase("kernels", phase_kernels, dev, batch=16, n=8192, reps=20)
     rep.update(phase("kernels-bwd", phase_kernels_bwd, dev, geom, reps=20))
     del geom
@@ -4142,6 +4405,7 @@ def main() -> int:
         f"{bf16_fwd_device_ms:.3f}")
     fwd_after = phase_forward_time(model, dev, batch=16, n=8192, reps=10,
                                    tag="forward after the profiler")
+    tools["trace"] = phase("measure-tools-trace", phase_measure_tools_trace, dev)
     log(f"[profiler] {len(PROFILER_DROPS)} session(s) recorded no device time and were made "
         f"again (session, host events): {PROFILER_DROPS}")
 
@@ -4263,6 +4527,8 @@ def main() -> int:
                    "realdata_drill": drill,
                    "data_parallel": dp,
                    "tensor_parallel": tpar,
+                   "measure_tools": tools,
+                   "native_oracles": oracles,
                    "phase_seconds": phase_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     st, tr = dp["step"], dp["trainer"]
@@ -4287,6 +4553,15 @@ def main() -> int:
         f"of {[round(r['timed_step_ms'], 2) for r in ts['ranks']]}; step readings "
         f"{json.dumps(ts['max_err'])}; predict max |logit difference| "
         f"{tpar['predict']['max_abs_logit_err']:.3e}, labels equal")
+    pin, page = tools["pinned"]["fit"], tools["pageable"]["fit"]
+    log(f"[report] measure-tools: pageable link {json.dumps(page)}, pinned {json.dumps(pin)}; "
+        f"overlap_efficiency pageable {tools['pageable']['overlap']['overlap_efficiency']:.3f}, "
+        f"pinned {tools['pinned']['overlap']['overlap_efficiency']:.3f}; mem_analysis peak MiB "
+        + " ".join(f"{r['remat']}={r['peak_mb']:.1f}" for r in tools["memory"])
+        + f"; trace {tools['trace']['kernel_events']} kernel events")
+    log(f"[report] native-oracles: rows differing from the host C++ "
+        + " ".join(f"{k}={v['rows']}" for k, v in oracles["levels"].items())
+        + f"; boundary inputs {json.dumps(oracles['boundary'])}")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(smi)

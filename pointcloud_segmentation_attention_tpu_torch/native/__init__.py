@@ -1,11 +1,13 @@
-"""Host-side C++ of the port: the full-scene chunker's grid assignment and
-the ball-splat renderer.
+"""Host-side C++ of the port: the full-scene chunker's grid assignment,
+the ball-splat renderer, and the host three-NN and ball query.
 
-``grid_chunk_assign`` and ``render_ball`` run the port's own copies of the
-JAX package's C++ ``native_ops.cpp:grid_chunk_assign`` and
-``native_ops.cpp:render_ball`` (``grid_chunk.cpp``, ``render_ball.cpp``),
-which is what the JAX package runs wherever ``g++`` exists.  Both sources
-are built with ``g++ -O3 -shared -fPIC`` at first use into one library in
+``grid_chunk_assign``, ``render_ball``, ``three_nn`` and ``ball_query`` run
+the port's own copies of the JAX package's C++
+``native_ops.cpp:grid_chunk_assign``, ``:render_ball``, ``:three_nn_cpu``
+and ``:ball_query_cpu`` (``grid_chunk.cpp``, ``render_ball.cpp``,
+``geometry_cpu.cpp``), which is what the JAX package runs wherever ``g++``
+exists.  The sources are built with ``g++ -O3 -ffp-contract=off -shared
+-fPIC`` at first use into one library in
 the package's ``_build/`` directory, named by a hash of the sources and
 flags, and loaded with ``ctypes``; processes that build at once take
 ``build_lock`` on that directory, so one compiles and the others load its
@@ -16,6 +18,14 @@ is no quiet fallback.
 tests' oracle: the same float32 arithmetic step for step (``x = p - min``,
 then ``floor((x -+ margin) / cell)``), so it equals the C++ bit for bit.
 The pair order (point-major, then cell x, then cell y) is the C++ writer's.
+
+``three_nn`` and ``ball_query`` are host oracles, independent of the
+plain versions (``ops/geometry.py``) and the kernels: three-NN in double
+with the lower index on a tie, ball query in float32 with
+``max(sqrt(d2), 1e-20) < radius`` (the plain version and the kernel compare
+``d2 < radius**2``, which can decide a point on the radius the other way).
+``geometry_cpu.cpp`` says why its squared distances are two written-out
+fused multiply-adds.
 
 ``render_ball_numpy`` is the renderer's plain version, equal to the C++
 byte for byte: ``std::lround`` (half away from zero), the float32 depth
@@ -39,9 +49,10 @@ from typing import Tuple
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = tuple(os.path.join(_HERE, name) for name in ("grid_chunk.cpp", "render_ball.cpp"))
+SOURCES = tuple(os.path.join(_HERE, name)
+                for name in ("grid_chunk.cpp", "render_ball.cpp", "geometry_cpu.cpp"))
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-GXX_FLAGS = ("-O3", "-shared", "-fPIC")
+GXX_FLAGS = ("-O3", "-ffp-contract=off", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
@@ -105,6 +116,14 @@ def build() -> ctypes.CDLL:
         fn.restype = None
         fn.argtypes = (ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int)
+        fn = lib.psa_three_nn_cpu
+        fn.restype = None
+        fn.argtypes = (ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
+        fn = lib.psa_ball_query_cpu
+        fn.restype = None
+        fn.argtypes = (ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
         _lib = lib
         return lib
 
@@ -172,6 +191,52 @@ def grid_chunk_assign_numpy(
         np.arange(len(points), dtype=np.int64)[:, None, None], valid.shape)
     flat = valid.reshape(-1)
     return cell_ids.reshape(-1)[flat], pids.reshape(-1)[flat], ncx, ncy
+
+
+def _clouds(a: np.ndarray, b: np.ndarray, names: Tuple[str, str]):
+    """(float32 a, float32 b), checked: the library reads (B, *, 3) rows with
+    int extents."""
+    a = np.ascontiguousarray(a, np.float32)
+    b = np.ascontiguousarray(b, np.float32)
+    if a.ndim != 3 or b.ndim != 3 or a.shape[2] != 3 or b.shape[2] != 3 \
+            or a.shape[0] != b.shape[0]:
+        raise ValueError(f"{names[0]} and {names[1]} must be (B, *, 3) with one B, got "
+                         f"{a.shape} and {b.shape}")
+    if max(a.size, b.size) >= 2 ** 31:
+        raise ValueError(f"{a.shape} and {b.shape} exceed int32 indexing")
+    return a, b
+
+
+def three_nn(xyz1: np.ndarray, xyz2: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The 3 nearest known points (xyz2, (B,M,3)) of each unknown point
+    (xyz1, (B,N,3)), from the compiled library: squared distance (B,N,3)
+    float32 ascending (computed in double), idx (B,N,3) int32, the lower
+    index on a tie.  With M < 3 the missing slots hold inf and index 0."""
+    xyz1, xyz2 = _clouds(xyz1, xyz2, ("xyz1", "xyz2"))
+    b, n, _ = xyz1.shape
+    dist = np.empty((b, n, 3), np.float32)
+    idx = np.empty((b, n, 3), np.int32)
+    build().psa_three_nn_cpu(b, n, xyz2.shape[1], xyz1.ctypes.data, xyz2.ctypes.data,
+                             dist.ctypes.data, idx.ctypes.data)
+    return dist, idx
+
+
+def ball_query(xyz: np.ndarray, centers: np.ndarray, radius: float,
+               nsample: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The first ``nsample`` points of xyz (B,N,3) in point order within
+    ``radius`` of each centre (B,M,3), from the compiled library: idx
+    (B,M,nsample) int32 (the slots past the count repeat the first hit; an
+    empty ball gives 0) and cnt (B,M) int32."""
+    xyz, centers = _clouds(xyz, centers, ("xyz", "centers"))
+    if nsample < 1:
+        raise ValueError(f"nsample must be >= 1, got {nsample}")
+    b, n, _ = xyz.shape
+    m = centers.shape[1]
+    idx = np.empty((b, m, nsample), np.int32)
+    cnt = np.empty((b, m), np.int32)
+    build().psa_ball_query_cpu(b, n, m, radius, nsample, xyz.ctypes.data, centers.ctypes.data,
+                               idx.ctypes.data, cnt.ctypes.data)
+    return idx, cnt
 
 
 def _splat_inputs(points: np.ndarray, colors: np.ndarray, h: int, w: int):

@@ -1,1 +1,8 @@
-"""Tools of the port: the trainer configuration, metric logging, and measurement scripts that run on the card."""
+"""Tools of the port: the trainer configuration, metric logging, profiling,
+and measurement scripts that run on the card (``h2d_bench``, ``bench_ops``,
+``mem_analysis``, ``trace_breakdown``, ``tree_timing``, ``plan_sweep``)."""
+from pointcloud_segmentation_attention_tpu_torch.utils.config import TrainConfig
+from pointcloud_segmentation_attention_tpu_torch.utils.logging import MetricLogger, read_metrics
+from pointcloud_segmentation_attention_tpu_torch.utils.profiler import StepTimer, trace
+
+__all__ = ["TrainConfig", "MetricLogger", "read_metrics", "StepTimer", "trace"]

@@ -7,8 +7,10 @@ A fresh interpreter refuses, through ``sys.meta_path``, every import of
 first.  It then imports every module of the port (the resident serving,
 BN folding, device replay, device sampler and recipe modules among them,
 and the classification and part-segmentation families) and
-``chip_smoke.py``, builds the host grid assignment and the ball-splat
-renderer with g++, trains one
+``chip_smoke.py``, builds the host grid assignment, the ball-splat
+renderer and the host three-NN and ball query with g++ (and calls the
+last two once; the measurement tools of ``utils/`` are among the modules
+it imports), trains one
 tiny step on the CPU through ``train.trainer.train`` (npz, pack store,
 resident corpus, the sampler with ``remat='dots'``, and bf16 products
 with ``remat='dots'``),
@@ -63,7 +65,8 @@ for name in ("eval.resident_serving", "train.bn_fold", "train.device_replay",
              "data.scannet.preprocessing", "recipes.realdata_drill", "viz", "viz.palette",
              "viz.ply_export", "viz.curves", "viz.animations", "parallel", "parallel.mesh",
              "parallel.dist", "parallel.collectives", "parallel.dist_selftest", "parallel.tp",
-             "parallel.act_sharding"):
+             "parallel.act_sharding", "utils.h2d_bench", "utils.bench_ops",
+             "utils.mem_analysis", "utils.profiler"):
     assert f"{port.__name__}.{name}" in modules, name
 
 import numpy as np
@@ -76,6 +79,11 @@ assert cells.tolist() == [0, 0, 2, 3, 2] and pids.tolist() == [0, 1, 1, 2, 3]
 splat = native.render_ball(four * 4, np.full((4, 3), 9, np.uint8), h=16, w=16, radius=1)
 assert splat.tobytes() == native.render_ball_numpy(
     four * 4, np.full((4, 3), 9, np.uint8), h=16, w=16, radius=1).tobytes()
+dist, idx = native.three_nn(four[None, :2], four[None])  # the host oracles
+assert idx.tolist() == [[[0, 1, 3], [1, 0, 3]]], idx
+idx, cnt = native.ball_query(four[None], four[None, :1], 1.5, 2)
+assert idx.tolist() == [[[0, 1]]] and cnt.tolist() == [[2]], (idx, cnt)
+from pointcloud_segmentation_attention_tpu_torch.utils import StepTimer, trace  # noqa: F401
 
 from pointcloud_segmentation_attention_tpu_torch.data.scannet import precompute, scenes
 from pointcloud_segmentation_attention_tpu_torch.train import trainer
