@@ -215,6 +215,28 @@ Phases (each raises on failure; the script then exits non-zero):
                    points placed on the radius and on near-tied known
                    points, the differing rows counted, every one a boundary
                    row.
+   The ablation tables (Report Tables 1, 3, 4, the wire parity and the
+   matched-cost comparison; ``ABLATION_*``), at the recipes' B4 x 2048:
+   ablation-model -- ``sem_seg_attention_single_layer`` with attention at
+                   SA2, SA3 and SA4 and ``sem_seg`` fed xyz only, checked as
+                   in phase 2 at B2 x 2048 and B2 x 8192.
+   ablation-serve -- one 40k-point room through ``ResidentSceneServer`` in
+                   each feature layout (xyz only, colors, normals, both) at
+                   margins 0.2 and 0.0: the card's chunker equal to the
+                   numpy twin, f32 labels equal to ``predict_scene_chunks``
+                   on the twin's chunks, q16 >= 98 % of f32; each layout's
+                   window launches the five forward kernels and no backward.
+   ablation-kernels -- every forward and backward kernel at B4 x 2048
+                   (SA1-4 with the gather at C 3 and 9 at SA1, FP1-4)
+                   against its plain version bit for bit as in phases 7-8,
+                   each level timed beside its bound.
+   ablation-recipes -- the five recipes' own ``main`` with ``--device cuda``
+                   at cut sizes (40 steps an arm, 10 epochs, a 10 s budget):
+                   counters zeroed just before and read just after each
+                   training arm, all seven kernels launched in each; every
+                   arm present with a finite mIoU and loss; the JSON's keys
+                   those of the vendored ``RESULTS_*.json``, its config the
+                   arguments given.
 7. kernels      -- every forward kernel against its plain PyTorch version on
                    the card at the B16 shapes (SA1-4, FP1-4) and at a large N;
                    all outputs equal bit for bit.  FPS, ball query,
@@ -262,8 +284,9 @@ Phases (each raises on failure; the script then exits non-zero):
                    and train windows' peak memory.
 10. report      -- one line per kernel (with its launches in the
                    serve-resident window, in each trainer run, in a bf16
-                   step, in a v1 ScanNet trainer step and in the drill's
-                   two runs), a
+                   step, in a v1 ScanNet trainer step, in the drill's
+                   two runs, in each ablation-serve window and
+                   ablation-recipes arm, and its B4 x 2048 levels), a
                    ``{"kernels": [...]}`` JSON line, the
                    card's name and power limit, and the final
                    ``{"ok": true, "device": {...}}`` line.
@@ -277,6 +300,7 @@ import copy
 import functools
 import glob
 import inspect
+import io
 import json
 import os
 import shutil
@@ -382,6 +406,13 @@ from pointcloud_segmentation_attention_tpu_torch.eval.voting import (  # noqa: E
     evaluate_part_segmentation,
 )
 from pointcloud_segmentation_attention_tpu_torch.recipes import realdata_drill  # noqa: E402
+from pointcloud_segmentation_attention_tpu_torch.recipes import (  # noqa: E402
+    attention_ablation,
+    attention_wire_parity,
+    context_margin,
+    diversity_matched,
+    feature_ablation,
+)
 from pointcloud_segmentation_attention_tpu_torch import parallel  # noqa: E402
 from pointcloud_segmentation_attention_tpu_torch.parallel import dist_selftest  # noqa: E402
 from pointcloud_segmentation_attention_tpu_torch.train import latest_checkpoint  # noqa: E402
@@ -531,13 +562,99 @@ def phase_build() -> None:
             log(f"[build]   {line.strip()}")
 
 
-def phase_kernels(dev, batch: int, n: int, reps: int):
-    """Each forward kernel against its plain version at every level; returns
-    the per-kernel report (errors, times, bounds) and each level's geometry
-    for the backward kernels."""
-    rng = np.random.RandomState(0)
+def kernel_levels(dev, rng: np.random.RandomState, batch: int, n: int, reps: int,
+                  prefix: str = "") -> tuple:
+    """Each forward kernel against its plain version at SA1-4 and FP1-4 of a
+    B x N cloud (the gather at SA1 both xyz only, C 3, and with six
+    features, C 9), timed beside its bound under ``prefix`` + the level.
+    Returns the report, each level's cloud, the geometry the backward
+    kernels take, and the SA1 and FP4 inputs."""
     rep = {k: {"max_abs_err": 0.0, "levels": {}, "device_fns": {}} for k in FORWARD_KERNELS}
     geom = {"sa": [], "fp": []}
+
+    def err(name, e):
+        rep[name]["max_abs_err"] = max(rep[name]["max_abs_err"], e)
+
+    def level_time(name, label, fn, work):
+        rep[name]["levels"][prefix + label] = time_ms(fn, reps)
+        rep[name]["device_fns"][prefix + label] = fn
+        rep[name].setdefault("level_bound", {})[prefix + label] = bound(*work)
+
+    xyz = torch.from_numpy((rng.rand(batch, n, 3) * EXTENT).astype(np.float32)).to(dev)
+    feats = torch.from_numpy(rng.rand(batch, n, SA_FEATURES[0]).astype(np.float32)).to(dev)
+    levels = [xyz]
+    for i, npoint in enumerate(sem_seg.SA_NPOINTS):
+        radius, ns = sem_seg.SA_RADII[i], sem_seg.SA_NSAMPLE
+        label = f"SA{i + 1}"
+        big_n = xyz.shape[1]
+        fps_k = ops.farthest_point_sample(xyz, npoint)
+        err("fps", check_equal(f"fps {prefix}{label}", fps_k,
+                               plain.farthest_point_sample(xyz, npoint)))
+        new_xyz = plain.gather_point(xyz, fps_k)
+        idx, cnt = ops.ball_query(xyz, new_xyz, radius, ns)
+        pidx, pcnt = plain.ball_query(xyz, new_xyz, radius, ns)
+        err("ball_query", check_equal(f"ball_query idx {prefix}{label}", idx, pidx))
+        err("ball_query", check_equal(f"ball_query cnt {prefix}{label}", cnt, pcnt))
+        pts = torch.cat([xyz, feats], dim=-1).contiguous()
+        widths = [(label, pts)] + ([(f"{label} C3", xyz)] if i == 0 else [])
+        for lab, p in widths:
+            err("group_gather", check_equal(f"group_gather {prefix}{lab}",
+                                            ops.group_point_with_counts(p, idx, cnt),
+                                            plain.group_point(p, idx)))
+        torch.cuda.synchronize()
+        level_time("fps", label, functools.partial(ops.farthest_point_sample, xyz, npoint),
+                   (big_n * batch * 12 + batch * npoint * 4, 9.0 * batch * (npoint - 1) * big_n))
+        level_time("ball_query", label,
+                   functools.partial(ops.ball_query, xyz, new_xyz, radius, ns),
+                   ball_query_work(xyz, new_xyz, idx, cnt, ns))
+        for lab, p in widths:
+            level_time("group_gather", lab,
+                       functools.partial(ops.group_point_with_counts, p, idx, cnt),
+                       gather_work(p, idx))
+        if i == 0:
+            sa1 = dict(xyz=xyz, new_xyz=new_xyz, idx=idx, cnt=cnt, pts=pts, npoint=npoint,
+                       radius=radius, ns=ns)
+        geom["sa"].append((prefix + label, idx, big_n, pts.shape[-1]))
+        log(f"[kernels] {prefix}{label}: N={big_n} npoint={npoint} r={radius} ns={ns} "
+            f"C={pts.shape[-1]}{' and 3' if i == 0 else ''} ball hits "
+            f"mean={cnt.float().mean().item():.2f} fps/ball_query/group_gather equal")
+        xyz = new_xyz
+        feats = torch.rand(batch, npoint, SA_FEATURES[i + 1] if i < 3 else 1, device=dev)
+        levels.append(xyz)
+
+    for i in range(4):
+        label = f"FP{i + 1}"
+        xyz1, xyz2 = levels[3 - i], levels[4 - i]
+        dist, nidx = ops.three_nn(xyz1, xyz2)
+        pdist, pnidx = plain.three_nn(xyz1, xyz2)
+        err("three_nn", check_equal(f"three_nn idx {prefix}{label}", nidx, pnidx))
+        err("three_nn", check_equal(f"three_nn dist {prefix}{label}", dist, pdist))
+        w = plain.interpolation_weights(pdist)
+        p2 = torch.randn(batch, xyz2.shape[1], FP_CHANNELS[i], device=dev)
+        err("three_interpolate", check_equal(
+            f"three_interpolate {prefix}{label}", ops.three_interpolate(p2, nidx, w),
+            plain.three_interpolate(p2, pnidx, w)))
+        torch.cuda.synchronize()
+        level_time("three_nn", label, functools.partial(ops.three_nn, xyz1, xyz2),
+                   three_nn_work(xyz1, xyz2))
+        level_time("three_interpolate", label,
+                   functools.partial(ops.three_interpolate, p2, nidx, w),
+                   interpolate_work(p2, nidx))
+        if i == 3:
+            fp4 = dict(xyz1=xyz1, xyz2=xyz2, idx=nidx, w=w, p2=p2)
+        geom["fp"].append((prefix + label, nidx, w, p2))
+        log(f"[kernels] {prefix}{label}: N={xyz1.shape[1]} M={xyz2.shape[1]} "
+            f"C={FP_CHANNELS[i]} three_nn idx and dist equal, interpolate equal")
+    return rep, levels, geom, sa1, fp4
+
+
+def phase_kernels(dev, batch: int, n: int, reps: int):
+    """Each forward kernel against its plain version at every level
+    (``kernel_levels``), at the attention nets' shapes, a large N and edge
+    shapes; returns the per-kernel report (errors, times, bounds) and each
+    level's geometry for the backward kernels."""
+    rng = np.random.RandomState(0)
+    rep, levels, geom, sa1, fp4 = kernel_levels(dev, rng, batch, n, reps)
 
     def err(name, e):
         rep[name]["max_abs_err"] = max(rep[name]["max_abs_err"], e)
@@ -548,65 +665,6 @@ def phase_kernels(dev, batch: int, n: int, reps: int):
 
     def level_bound(name, label, nbytes, flops):
         rep[name].setdefault("level_bound", {})[label] = bound(nbytes, flops)
-
-    xyz = torch.from_numpy((rng.rand(batch, n, 3) * EXTENT).astype(np.float32)).to(dev)
-    feats = torch.from_numpy(rng.rand(batch, n, SA_FEATURES[0]).astype(np.float32)).to(dev)
-    levels = [xyz]
-    for i, npoint in enumerate(sem_seg.SA_NPOINTS):
-        radius, ns = sem_seg.SA_RADII[i], sem_seg.SA_NSAMPLE
-        label = f"SA{i + 1}"
-        fps_k = ops.farthest_point_sample(xyz, npoint)
-        err("fps", check_equal(f"fps {label}", fps_k, plain.farthest_point_sample(xyz, npoint)))
-        new_xyz = plain.gather_point(xyz, fps_k)
-        idx, cnt = ops.ball_query(xyz, new_xyz, radius, ns)
-        pidx, pcnt = plain.ball_query(xyz, new_xyz, radius, ns)
-        err("ball_query", check_equal(f"ball_query idx {label}", idx, pidx))
-        err("ball_query", check_equal(f"ball_query cnt {label}", cnt, pcnt))
-        pts = torch.cat([xyz, feats], dim=-1).contiguous()
-        err("group_gather", check_equal(f"group_gather {label}",
-                                        ops.group_point_with_counts(pts, idx, cnt),
-                                        plain.group_point(pts, idx)))
-        torch.cuda.synchronize()
-        level_time("fps", label, functools.partial(ops.farthest_point_sample, xyz, npoint))
-        level_time("ball_query", label,
-                   functools.partial(ops.ball_query, xyz, new_xyz, radius, ns))
-        level_time("group_gather", label,
-                   functools.partial(ops.group_point_with_counts, pts, idx, cnt))
-        level_bound("ball_query", label, *ball_query_work(xyz, new_xyz, idx, cnt, ns))
-        level_bound("group_gather", label, *gather_work(pts, idx))
-        if i == 0:
-            sa1 = dict(xyz=xyz, new_xyz=new_xyz, idx=idx, cnt=cnt, pts=pts, npoint=npoint,
-                       radius=radius, ns=ns)
-        geom["sa"].append((label, idx, xyz.shape[1], pts.shape[-1]))
-        log(f"[kernels] {label}: N={xyz.shape[1]} npoint={npoint} r={radius} ns={ns} "
-            f"C={pts.shape[-1]} ball hits mean={cnt.float().mean().item():.2f} "
-            f"fps/ball_query/group_gather equal")
-        xyz = new_xyz
-        feats = torch.rand(batch, npoint, SA_FEATURES[i + 1] if i < 3 else 1, device=dev)
-        levels.append(xyz)
-
-    for i in range(4):
-        label = f"FP{i + 1}"
-        xyz1, xyz2 = levels[3 - i], levels[4 - i]
-        dist, nidx = ops.three_nn(xyz1, xyz2)
-        pdist, pnidx = plain.three_nn(xyz1, xyz2)
-        err("three_nn", check_equal(f"three_nn idx {label}", nidx, pnidx))
-        err("three_nn", check_equal(f"three_nn dist {label}", dist, pdist))
-        w = plain.interpolation_weights(pdist)
-        p2 = torch.randn(batch, xyz2.shape[1], FP_CHANNELS[i], device=dev)
-        err("three_interpolate", check_equal(
-            f"three_interpolate {label}", ops.three_interpolate(p2, nidx, w),
-            plain.three_interpolate(p2, pnidx, w)))
-        torch.cuda.synchronize()
-        level_time("three_nn", label, functools.partial(ops.three_nn, xyz1, xyz2))
-        level_bound("three_nn", label, *three_nn_work(xyz1, xyz2))
-        level_time("three_interpolate", label, functools.partial(ops.three_interpolate, p2, nidx, w))
-        level_bound("three_interpolate", label, *interpolate_work(p2, nidx))
-        if i == 3:
-            fp4 = dict(xyz1=xyz1, xyz2=xyz2, idx=nidx, w=w, p2=p2)
-        geom["fp"].append((label, nidx, w, p2))
-        log(f"[kernels] {label}: N={xyz1.shape[1]} M={xyz2.shape[1]} C={FP_CHANNELS[i]} "
-            f"three_nn idx and dist equal, interpolate equal")
 
     # The full attention nets' new shapes: ball query at radius 0.1 at SA2-4
     # (sparse balls), the gather at their group widths (3 + the level's
@@ -692,8 +750,7 @@ def phase_kernels(dev, batch: int, n: int, reps: int):
         plain_ms=time_ms(lambda: plain.farthest_point_sample(x, npt), max(2, reps // 4), 1, 1),
         library_ms=None, library_fn=None, shape=f"B{b} N{n} -> {npt}",
         plan=fps_kernel.plan(b, n)._asdict())
-    rep["fps"]["bound_ms"], rep["fps"]["bound_by"] = bound(
-        b * n * 12 + b * npt * 4, 9.0 * b * (npt - 1) * n)
+    rep["fps"]["bound_ms"], rep["fps"]["bound_by"] = rep["fps"]["level_bound"]["SA1"]
     rep["ball_query"].update(
         ms=rep["ball_query"]["levels"]["SA1"], headline="SA1",
         plain_ms=time_ms(lambda: plain.ball_query(x, nx, r, ns), max(2, reps // 4), 1, 1),
@@ -1162,61 +1219,76 @@ def index_add_call(g, idx, n: int):
     return lambda: torch.zeros(b * n, c, device=g.device).index_add_(0, rows, flat_g)
 
 
-def phase_kernels_bwd(dev, geom: dict, reps: int) -> dict:
-    """The two backward kernels against their plain versions at SA2-4 /
-    FP1-4 and a large N, and the gather backward at edge shapes; times at
-    every level, headline SA2 and FP4."""
-    rng = torch.Generator(device=dev).manual_seed(7)
-    rep = {k: {"max_abs_err": 0.0, "levels": {}, "device_fns": {}} for k in BACKWARD_KERNELS}
+class BackwardCases:
+    """The two backward kernels held case by case against their plain
+    versions, their gradients drawn from one seeded generator; a timed case
+    goes into ``rep`` beside its bound."""
 
-    def err(name, e):
-        rep[name]["max_abs_err"] = max(rep[name]["max_abs_err"], e)
+    def __init__(self, dev, reps: int, seed: int):
+        self.dev, self.reps = dev, reps
+        self.gen = torch.Generator(device=dev).manual_seed(seed)
+        self.rep = {k: {"max_abs_err": 0.0, "levels": {}, "device_fns": {}}
+                    for k in BACKWARD_KERNELS}
 
-    def gather_case(label, idx, n, c, lib_tol=BWD_TOL):
+    def gather(self, label, idx, n, c, lib_tol=BWD_TOL):
         """Bit for bit against the CPU and call to call; timed beside its
         bound and ``index_add_`` (held to the plain version within
         ``lib_tol``: on the card it adds in no fixed order)."""
         b, m, k = idx.shape
-        g = torch.randn(b, m, k, c, device=dev, generator=rng)
+        g = torch.randn(b, m, k, c, device=self.dev, generator=self.gen)
         check_gather_bwd(label, g, idx, n)
-        r = rep["group_gather_bwd"]
+        r = self.rep["group_gather_bwd"]
         fn = lambda: gather_kernels.group_point_backward(g, idx, n)  # noqa: E731
         lib = index_add_call(g, idx, n)
         check_close(f"group_gather_bwd library {label}", lib().reshape(b, n, c),
                     plain.group_point_backward(g, idx, n), lib_tol)
-        r["levels"][label] = time_ms(fn, reps)
+        r["levels"][label] = time_ms(fn, self.reps)
         r["device_fns"][label] = fn
         r.setdefault("level_bound", {})[label] = bound(*gather_bwd_work(g, n))
-        r.setdefault("library_levels", {})[label] = time_ms(lib, reps)
+        r.setdefault("library_levels", {})[label] = time_ms(lib, self.reps)
         r.setdefault("library_fns", {})[label] = lib
         return g
 
-    def interp_case(label, idx, w, p2, timed, dw_tol=BWD_TOL):
-        g = torch.randn(idx.shape[0], idx.shape[1], p2.shape[-1], device=dev, generator=rng)
-        err("three_interpolate_bwd", check_interpolate_bwd(label, g, idx, w, p2, dw_tol))
+    def interp(self, label, idx, w, p2, timed, dw_tol=BWD_TOL):
+        g = torch.randn(idx.shape[0], idx.shape[1], p2.shape[-1], device=self.dev,
+                        generator=self.gen)
+        r = self.rep["three_interpolate_bwd"]
+        r["max_abs_err"] = max(r["max_abs_err"],
+                               check_interpolate_bwd(label, g, idx, w, p2, dw_tol))
         if timed:
-            r = rep["three_interpolate_bwd"]
             fn = lambda: interp_kernels.three_interpolate_backward(g, idx, w, p2)  # noqa: E731
             dp_fn = lambda: interp_kernels.three_interpolate_backward(  # noqa: E731
                 g, idx, w, p2, need_dw=False)
-            r["levels"][label] = time_ms(fn, reps)
+            r["levels"][label] = time_ms(fn, self.reps)
             r["device_fns"][label] = fn
             r.setdefault("level_bound", {})[label] = bound(*interpolate_bwd_work(p2, idx, True))
-            r.setdefault("dp_levels", {})[label] = time_ms(dp_fn, reps)
+            r.setdefault("dp_levels", {})[label] = time_ms(dp_fn, self.reps)
             r.setdefault("dp_fns", {})[label] = dp_fn
             r.setdefault("dp_level_bound", {})[label] = bound(
                 *interpolate_bwd_work(p2, idx, False))
         return g
 
-    heads = {}
-    for label, idx, n, c in geom["sa"][1:]:  # SA1's input carries no gradient
-        g = gather_case(label, idx, n, c)
-        if label == "SA2":
-            heads["gather"] = (g, idx, n)
-    for label, idx, w, p2 in geom["fp"]:
-        g = interp_case(label, idx, w, p2, True)
-        if label == "FP4":
-            heads["interp"] = (g, idx, w, p2)
+    def levels(self, geom: dict) -> dict:
+        """Every gather level of ``geom`` but SA1 (its input carries no
+        gradient) and every FP level, each timed; returns the inputs at SA2
+        and FP4."""
+        heads = {}
+        for j, (label, idx, n, c) in enumerate(geom["sa"][1:]):
+            g = self.gather(label, idx, n, c)
+            if j == 0:
+                heads["gather"] = (g, idx, n)
+        for label, idx, w, p2 in geom["fp"]:
+            heads["interp"] = (self.interp(label, idx, w, p2, True), idx, w, p2)
+        return heads
+
+
+def phase_kernels_bwd(dev, geom: dict, reps: int) -> dict:
+    """The two backward kernels against their plain versions at SA2-4 /
+    FP1-4 (``BackwardCases.levels``) and a large N, and the gather backward
+    at edge shapes; times at every level, headline SA2 and FP4."""
+    cases = BackwardCases(dev, reps, seed=7)
+    rep, rng, gather_case, interp_case = cases.rep, cases.gen, cases.gather, cases.interp
+    heads = cases.levels(geom)
     for label, idx, w, p2 in geom.pop("fp_wide"):
         # dw sums C products of unit-scale normals in another order than the
         # plain version: its tolerance grows with C over BWD_TOL's 512, as
@@ -4261,6 +4333,259 @@ def phase_native_oracles(dev, batch: int = 16, n: int = 8192) -> dict:
     return out
 
 
+# ---- the ablation tables: Report Tables 1, 3 and 4 and their two companions ---------
+
+# Table 1's single-layer attention arms below SA1 (att_L2-L4) and its
+# baseline, all fed xyz only.
+ABLATION_MODELS = (("sem_seg_attention_single_layer", {"layer_idx": 1}),
+                   ("sem_seg_attention_single_layer", {"layer_idx": 2}),
+                   ("sem_seg_attention_single_layer", {"layer_idx": 3}),
+                   ("sem_seg", {}))
+# The recipes' batch and chunk (B4 x 2048) and their 40k-point rooms; the
+# models are also held at the serving chunk, 8192.
+ABLATION_BATCH, ABLATION_N = 4, 2048
+ABLATION_MODEL_N = (ABLATION_N, 8192)
+ABLATION_ROOM_POINTS = 40_000
+# (use_colors, use_normals) -> name of the serving layouts: Table 1 serves xyz
+# only, Table 3 each of the four.
+ABLATION_LAYOUTS = {(False, False): "xyz", (True, False): "colors",
+                    (False, True): "normals", (True, True): "colors+normals"}
+ABLATION_MARGINS = (0.2, 0.0)  # Table 4's margins: with context, and cells alone
+# The five recipes at cut sizes: (vendored stem, module, main's cut arguments,
+# what the result must echo, training arms).
+ABLATION_RECIPES = (
+    ("attention_ablation", attention_ablation, ["--max_steps", "40"], {"max_steps": 40}, 7),
+    ("feature_ablation", feature_ablation, ["--max_steps", "40"], {"max_steps": 40}, 4),
+    ("context_margin", context_margin, ["--max_steps", "40"], {"max_steps": 40}, 1),
+    ("attention_q16_convergence", attention_wire_parity, ["--epochs", "10"], {"epochs": 10}, 2),
+    ("diversity_matched", diversity_matched, ["--budget_s", "10"], {"budget_s": 10.0}, 2),
+)
+
+
+def phase_ablation_model(dev) -> dict:
+    """``ABLATION_MODELS`` with seeded weights, each checked as in phase 2
+    at B2 x 2048 (the recipes' chunk) and B2 x 8192: indices equal at every
+    level, logits within ``LOGIT_TOL`` of the CPU's."""
+    out = {}
+    for name, kw in ABLATION_MODELS:
+        for n in ABLATION_MODEL_N:
+            model = phase_model(dev, n=n, name=name, tag="ablation-model", **kw)
+            out[f"{name} {kw} N{n}"] = model.smoke_report
+            del model
+    return out
+
+
+def served_window(server, room: dict, tag: str):
+    """``server.predict_scene(room)`` between launch counters zeroed just
+    before it and read just after: the five forward kernels, no backward
+    kernel.  Returns (labels, launches)."""
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    labels = server.predict_scene(room)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    missing = [k for k in FORWARD_KERNELS if launches[k] == 0]
+    if missing or any(launches[k] for k in BACKWARD_KERNELS):
+        raise AssertionError(f"ablation-serve {tag}: forward kernels not launched {missing}, "
+                             f"or a backward kernel launched: {launches}")
+    n = len(room["points"])
+    if labels.shape != (n,) or labels.min() < 0 or labels.max() >= 21:
+        raise AssertionError(f"ablation-serve {tag}: labels of shape {labels.shape} in "
+                             f"[{labels.min()}, {labels.max()}]")
+    return labels, launches
+
+
+def phase_ablation_serve(dev, npoints: int = ABLATION_N, batch: int = ABLATION_BATCH) -> dict:
+    """One 40k-point room served by ``ResidentSceneServer`` in each layout of
+    ``ABLATION_LAYOUTS`` (``sem_seg`` for xyz only, else ``sem_seg_features``
+    fed the layout's channels, seeded weights), at each margin of
+    ``ABLATION_MARGINS``: the card's chunker on the f32 buffer of that
+    layout equal to the numpy twin bit for bit; the f32 server's labels
+    equal to ``predict_scene_chunks`` on the card fed the twin's chunks;
+    q16 labels >= 98 % of f32's.  Each server's ``predict_scene`` is its own
+    launch window (``served_window``); the chunker and the host path run
+    outside them."""
+    room = dict(make_synthetic_scene(ABLATION_ROOM_POINTS, seed=300), scene_name="ablation")
+    n = len(room["points"])
+    out = {}
+    for (use_colors, use_normals), tag in ABLATION_LAYOUTS.items():
+        k = 3 * use_colors + 3 * use_normals
+        model = (models.seeded_model("sem_seg_features", seed=0, device=dev, in_features=k)
+                 if k else models.seeded_model("sem_seg", seed=0, device=dev))
+        kw = dict(batch_size=batch, use_colors=use_colors, use_normals=use_normals, device=dev)
+        predict_fn = make_predict_fn(model, device=dev)
+        rec = {"q16_vs_f32": {}, "chunks": {}, "launches": {}}
+        t0 = time.perf_counter()
+        for margin in ABLATION_MARGINS:
+            server = resident_serving.ResidentSceneServer(model, npoints, layout="f32",
+                                                          margin=margin, **kw)
+            layout = resident_serving.SceneLayout("f32", server._n_pad(n), use_colors,
+                                                  use_normals)
+            dbuf = torch.from_numpy(layout.pack(
+                room["points"], room["colors"] if use_colors else None,
+                room["normals"] if use_normals else None)).to(dev)
+            x = resident_serving.chunk_count(room["points"], npoints, margin=margin)
+            idx, mask, nc = resident_serving.make_scene_chunker(
+                layout, resident_serving._bucket(x, 4 * batch), npoints, margin=margin)(dbuf, n)
+            twin = resident_serving.deterministic_scene_chunks(
+                room["points"], [room["colors"], room["normals"]], npoints, margin=margin)
+            idx, mask = idx.cpu().numpy(), mask.cpu().numpy()
+            if (int(nc) != x or x != len(twin.points) or not np.array_equal(idx[:x], twin.orig_idx)
+                    or not np.array_equal(mask[:x], twin.masks) or mask[x:].any()):
+                raise AssertionError(f"ablation-serve {tag} margin {margin}: the card's chunker "
+                                     f"differs from the numpy twin ({int(nc)} chunks, twin "
+                                     f"{len(twin.points)})")
+            host = predict_scene_chunks(
+                predict_fn, dict(points=twin.points, colors=twin.features[0],
+                                 normals=twin.features[1].astype(np.float32), masks=twin.masks,
+                                 orig_idx=twin.orig_idx, num_vertices=n),
+                use_colors, use_normals, batch)
+            f32, rec["launches"][f"f32 margin {margin}"] = served_window(
+                server, room, f"{tag} f32 margin {margin}")
+            if not np.array_equal(f32, host):
+                raise AssertionError(f"ablation-serve {tag} margin {margin}: f32 labels differ "
+                                     f"from the host path at {int((f32 != host).sum())} of {n}")
+            q16, rec["launches"][f"q16 margin {margin}"] = served_window(
+                resident_serving.ResidentSceneServer(model, npoints, layout="q16",
+                                                     margin=margin, **kw),
+                room, f"{tag} q16 margin {margin}")
+            agree = float((q16 == f32).mean())
+            if agree < 0.98:
+                raise AssertionError(f"ablation-serve {tag} margin {margin}: q16 labels agree "
+                                     f"with f32 on only {agree:.4%}")
+            rec["q16_vs_f32"][str(margin)] = agree
+            rec["chunks"][str(margin)] = x
+        rec["wall_s"] = time.perf_counter() - t0
+        log(f"[ablation-serve] {tag} ({'sem_seg' if not k else f'sem_seg_features, {k} channels'}"
+            f"), a {n}-point room at B{batch} x {npoints}: chunker equal to the numpy twin and "
+            f"f32 labels equal to the host path at margins {list(ABLATION_MARGINS)} (chunks "
+            f"{rec['chunks']}); q16 vs f32 {rec['q16_vs_f32']}; {rec['wall_s']:.2f} s; each "
+            f"server's window the five forward kernels, no backward: "
+            f"{json.dumps(rec['launches'])}")
+        out[tag] = rec
+        del model, predict_fn
+    return out
+
+
+def phase_ablation_kernels(dev, reps: int, batch: int = ABLATION_BATCH,
+                           n: int = ABLATION_N) -> dict:
+    """``kernel_levels`` and ``BackwardCases.levels`` at the recipes' levels
+    (B4 x 2048: FPS 2048 -> 1024 -> 256 -> 64 -> 16 on the single-block
+    path), labelled ``B4 N2048``: every kernel bit for bit against its plain
+    version (the backwards' dP against CPU copies, dw within ``BWD_TOL``),
+    timed beside its bound.  Returns each kernel's error and per-level
+    times and bounds."""
+    prefix = f"B{batch} N{n} "
+    rep, _, geom, _, _ = kernel_levels(dev, np.random.RandomState(17), batch, n, reps, prefix)
+    cases = BackwardCases(dev, reps, seed=17)
+    cases.levels(geom)
+    rep.update(cases.rep)
+    torch.cuda.synchronize()
+    out = {}
+    for name, r in rep.items():
+        out[name] = dict(max_abs_err=r["max_abs_err"], level_ms=r["levels"],
+                         level_bound_ms={k: v[0] for k, v in r["level_bound"].items()})
+        log(f"[ablation-kernels] {name:21s} equal to its plain version; ms wall/bound: "
+            + " ".join(f"{k}={v:.4f}/{out[name]['level_bound_ms'][k]:.4f}"
+                       for k, v in r["levels"].items()))
+    return out
+
+
+@contextlib.contextmanager
+def counted_arms(arms: list, root: str):
+    """Record every ``trainer.train`` call the recipes make: launch counters
+    zeroed just before it and read just after, its steps, last loss and
+    seconds, under its log directory relative to ``root``."""
+    real = trainer.train
+
+    def train(config, *args, **kwargs):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        summary = real(config, *args, **kwargs)
+        torch.cuda.synchronize()
+        arms.append(dict(run=os.path.relpath(config.log_dir, root), model=config.model,
+                         input=config.input, launches=kernels.launch_counts(),
+                         steps=summary["final_step"], loss=summary.get("final_train_loss"),
+                         train_s=time.perf_counter() - t0))
+        return summary
+
+    trainer.train = train
+    try:
+        yield
+    finally:
+        trainer.train = real
+
+
+def _result_arms(stem: str, result: dict) -> dict:
+    """Each arm's (offline mIoU, wall seconds) in a recipe's result."""
+    if stem == "context_margin":
+        return {f"margin {m}": (v, None) for m, v in result["offline_miou_by_margin"].items()}
+    return {arm: (r["offline_mean_iou"],
+                  r.get("wall_seconds", r.get("wall_s", r.get("train_wall_s"))))
+            for arm, r in result["arms"].items()}
+
+
+def phase_ablation_recipes(dev) -> dict:
+    """The five recipes' own ``main`` with ``--device cuda`` at the cut sizes
+    of ``ABLATION_RECIPES``, each writing its JSON: every training arm
+    launched all seven kernels between counters zeroed just before it and
+    read just after, made its steps and ended on a finite loss; every arm
+    present with a finite offline mIoU; the JSON's top-level and config keys
+    equal to the vendored ``RESULTS_*.json``'s, and its config echoing the
+    arguments given."""
+    work = tempfile.mkdtemp(prefix=".recipe_smoke_", dir=ROOT)
+    out = {}
+    try:
+        for stem, module, cut, echo, n_arms in ABLATION_RECIPES:
+            path = os.path.join(work, f"{stem}.json")
+            argv = ["--device", dev.type, "--workdir", os.path.join(work, stem),
+                    "--results_path", path, *cut]
+            arms, printed = [], io.StringIO()
+            t0 = time.perf_counter()
+            with counted_arms(arms, os.path.join(work, stem)), \
+                    contextlib.redirect_stdout(printed):
+                module.main(argv)
+            wall = time.perf_counter() - t0
+            with open(path) as f:
+                result = json.load(f)
+            with open(os.path.join(ROOT, f"RESULTS_{stem}.json")) as f:
+                vendored = json.load(f)
+            if sorted(result) != sorted(vendored) or \
+                    sorted(result["config"]) != sorted(vendored["config"]):
+                raise AssertionError(f"ablation-recipes {stem}: keys {sorted(result)} / config "
+                                     f"{sorted(result['config'])} differ from the vendored JSON")
+            for key, value in echo.items():
+                if result["config"].get(key, result.get(key)) != value:
+                    raise AssertionError(f"ablation-recipes {stem}: {key} is not {value}")
+            scored = _result_arms(stem, result)
+            if sorted(scored) != sorted(_result_arms(stem, vendored)) or \
+                    not all(np.isfinite(v) for v, _ in scored.values()):
+                raise AssertionError(f"ablation-recipes {stem}: arms {scored}")
+            expect_steps = echo.get("max_steps", 4 * echo.get("epochs", 0))
+            for arm in arms:
+                missing = [k for k in KERNEL_INFO if arm["launches"][k] == 0]
+                if missing or not np.isfinite(arm["loss"]) or arm["steps"] < 1 or \
+                        (expect_steps and arm["steps"] != expect_steps):
+                    raise AssertionError(f"ablation-recipes {stem} {arm['run']}: {arm} "
+                                         f"(kernels never launched: {missing})")
+            if len(arms) != n_arms:
+                raise AssertionError(f"ablation-recipes {stem}: {len(arms)} training runs, "
+                                     f"expected {n_arms}")
+            for arm in arms:
+                log(f"[ablation-recipes] {stem} {arm['run']} ({arm['model']}, {arm['input']}): "
+                    f"{arm['steps']} steps in {arm['train_s']:.2f} s of training, last loss "
+                    f"{arm['loss']:.4f}; launches {json.dumps(arm['launches'])}")
+            log(f"[ablation-recipes] {stem} main {' '.join(cut)}: {wall:.1f} s; offline mIoU "
+                "(arm wall s) " + " ".join(
+                    f"{a}={v:.4f}" + (f" ({s:.1f} s)" if s is not None else "")
+                    for a, (v, s) in scored.items()))
+            out[stem] = dict(wall_s=wall, arms=arms, result=result)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script drives the GPU port",
@@ -4367,6 +4692,10 @@ def main() -> int:
     drill = phase("realdata-drill", phase_realdata_drill, dev)
     tools = phase("measure-tools", phase_measure_tools, dev, remat)
     oracles = phase("native-oracles", phase_native_oracles, dev)
+    abl_model = phase("ablation-model", phase_ablation_model, dev)
+    abl_serve = phase("ablation-serve", phase_ablation_serve, dev)
+    abl_kernels = phase("ablation-kernels", phase_ablation_kernels, dev, reps=20)
+    abl_recipes = phase("ablation-recipes", phase_ablation_recipes, dev)
     rep, geom = phase("kernels", phase_kernels, dev, batch=16, n=8192, reps=20)
     rep.update(phase("kernels-bwd", phase_kernels_bwd, dev, geom, reps=20))
     del geom
@@ -4415,7 +4744,7 @@ def main() -> int:
         r = rep[name]
         launches = (serve if name in FORWARD_KERNELS else train)["launches"][name]
         levels = " ".join(f"{k}={v:.4f}/{r['level_device'][k]:.4f}"
-                          + (f"/bound {r['level_bound'][k][0]:.4f}" if "level_bound" in r else "")
+                          + f"/bound {r['level_bound'][k][0]:.4f}"
                           for k, v in r["levels"].items())
         lib = ("-" if r["library_ms"] is None else
                f"{r['library_ms']:.4f} ms, device {r['library_device_ms']:.4f}")
@@ -4441,7 +4770,7 @@ def main() -> int:
             f"{r['shape']}: "
             f"{r['ms']:.4f} ms, device {r['device_ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
             f"library {lib} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}); per level "
-            f"ms wall/device{'/bound' if 'level_bound' in r else ''}: {levels}; "
+            f"ms wall/device/bound: {levels}; "
             f"max_abs_err {r['max_abs_err']}")
         line.append({
             "name": name, "route": "cuda", "source": CSRC + src,
@@ -4472,14 +4801,20 @@ def main() -> int:
                                                       dp["serve"]["launches_per_lane"]],
             "tensor_parallel_step_launches_per_rank": [r["launches"][name]
                                                        for r in tpar["step"]["ranks"]],
+            "ablation_serve_launches": {f"{t} {w}": c[name] for t, v in abl_serve.items()
+                                        for w, c in v["launches"].items()},
+            "ablation_recipe_launches": {f"{stem} {arm['run']}": arm["launches"][name]
+                                         for stem, v in abl_recipes.items()
+                                         for arm in v["arms"]},
+            "ablation_level_ms": abl_kernels[name]["level_ms"],
+            "ablation_level_bound_ms": abl_kernels[name]["level_bound_ms"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "library_device_ms": r["library_device_ms"],
             "parity": "pass", "shape": r["shape"], "level_ms": r["levels"],
             "level_device_ms": r["level_device"],
+            "level_bound_ms": {k: v[0] for k, v in r["level_bound"].items()},
         })
-        if "level_bound" in r:  # all kernels but FPS and the gather: the bound per level
-            line[-1]["level_bound_ms"] = {k: v[0] for k, v in r["level_bound"].items()}
         if "library_levels" in r:  # the gather backward: index_add_ per level
             line[-1].update(library_level_ms=r["library_levels"],
                             library_level_device_ms=r["library_level_device"])
@@ -4529,6 +4864,8 @@ def main() -> int:
                    "tensor_parallel": tpar,
                    "measure_tools": tools,
                    "native_oracles": oracles,
+                   "ablation": {"model": abl_model, "serve": abl_serve, "kernels": abl_kernels,
+                                "recipes": abl_recipes},
                    "phase_seconds": phase_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     st, tr = dp["step"], dp["trainer"]
@@ -4562,6 +4899,10 @@ def main() -> int:
     log(f"[report] native-oracles: rows differing from the host C++ "
         + " ".join(f"{k}={v['rows']}" for k, v in oracles["levels"].items())
         + f"; boundary inputs {json.dumps(oracles['boundary'])}")
+    log("[report] ablation-recipes: " + "; ".join(
+        f"{stem} {v['wall_s']:.1f} s, " + ", ".join(
+            f"{arm['run']} {arm['steps']} steps {arm['train_s']:.1f} s" for arm in v["arms"])
+        for stem, v in abl_recipes.items()))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(smi)

@@ -5,7 +5,9 @@ Table 3 feature ablations, the Table 4 context margin, the matched-cost
 diversity comparison and the attention wire parity; and the convergence
 runs of the other families (``family_convergence``: the PointNet++
 classifiers and part segmenters, PointNet v1, the attention nets, the v1
-ScanNet trainer and the extension arms)."""
+ScanNet trainer and the extension arms).  ``vendored_runs`` runs the
+sem_seg ablation recipes at the sizes of the JAX package's vendored
+``RESULTS_*.json`` and keeps each result beside the card it ran on."""
 from pointcloud_segmentation_attention_tpu_torch.recipes.attention_ablation import (
     run_attention_ablation,
 )

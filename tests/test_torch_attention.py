@@ -60,6 +60,11 @@ ATTENTION_MODELS = [
     ("sem_seg_attention_single_layer", {"layer_idx": 3}),
     ("sem_seg_attention_and_pooling", {}),
 ]
+# Attention at SA2 and SA3 alone: Table 1's att_L2 and att_L3 arms.
+MIDDLE_SINGLE_LAYERS = [
+    ("sem_seg_attention_single_layer", {"layer_idx": 1}),
+    ("sem_seg_attention_single_layer", {"layer_idx": 2}),
+]
 
 
 def _t(a):
@@ -238,7 +243,7 @@ def test_attention_pooling_checks_its_width_and_names():
 
 # ---- the registry models ---------------------------------------------------------
 
-@pytest.mark.parametrize("name, kwargs", ATTENTION_MODELS)
+@pytest.mark.parametrize("name, kwargs", ATTENTION_MODELS + MIDDLE_SINGLE_LAYERS)
 def test_tiny_attention_models_match_jax(name, kwargs):
     pts, _ = _inputs(2, 256)
     want, got, flat, tm = _bridged(name, {**TINY, **kwargs}, pts, None)
@@ -296,7 +301,8 @@ def test_registry_names_defaults_and_overrides():
 
 # ---- training and the checkpoint bridge --------------------------------------
 
-@pytest.mark.parametrize("name, kwargs", ATTENTION_MODELS[:2] + ATTENTION_MODELS[3:])
+@pytest.mark.parametrize("name, kwargs",
+                         ATTENTION_MODELS[:2] + ATTENTION_MODELS[3:] + MIDDLE_SINGLE_LAYERS)
 def test_attention_train_steps_match_jax(scene, name, kwargs):  # noqa: F811
     """Three tiny steps, xyz only, each held to the JAX step."""
     train_steps_match_jax(scene, name, {**TINY, **kwargs, "sa_radii": XYZ_ONLY_RADII}, 2, 256,

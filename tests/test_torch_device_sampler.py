@@ -35,6 +35,7 @@ from pointcloud_segmentation_attention_tpu.data.scannet.chunks import (
 )
 from pointcloud_segmentation_attention_tpu.ops import geometry as jgeo
 from pointcloud_segmentation_attention_tpu.train import device_sampler as jds
+from pointcloud_segmentation_attention_tpu.train import schedules as jsched
 from pointcloud_segmentation_attention_tpu.train import trainer as jtrainer
 from pointcloud_segmentation_attention_tpu.utils.config import TrainConfig as JConfig
 from pointcloud_segmentation_attention_tpu_torch.parallel import Mesh
@@ -497,3 +498,75 @@ def test_sampler_budget_is_checked_before_any_scene_loads(store, monkeypatch):
     cfg = TrainConfig(**{**base, "log_dir": str(d / "budget")}, sampler_budget_mb=0)
     with pytest.raises(ValueError, match="sampler_budget_mb"):
         ttrainer.train(cfg, device="cpu")
+
+
+def _recording(record: dict, module, real_schedules):
+    """Wrap ``module.make_sampling_train_step`` and the schedules: the
+    resident scenes' lengths and points, every step's scene ids, and the
+    (batch size, train scene count) each schedule is called with."""
+    real_make = module.make_sampling_train_step
+
+    def make(scenes, npoints, **kw):
+        record["scenes"] = (np.asarray(scenes.lengths), np.asarray(scenes.points))
+        step = real_make(scenes, npoints, **kw)
+
+        def recorded(state, ids, *args):
+            record.setdefault("ids", []).append(np.asarray(ids))
+            return step(state, ids, *args)
+        return recorded
+
+    def schedule(name):
+        real = getattr(real_schedules, name)
+
+        def called(step, batch_size, n_train_scenes):
+            record.setdefault(name, set()).add((int(batch_size), int(n_train_scenes)))
+            return real(step, batch_size, n_train_scenes)
+        return called
+
+    return {"make_sampling_train_step": make,
+            **{n: schedule(n) for n in ("scannet_learning_rate", "scannet_bn_momentum")}}
+
+
+def test_use_subset_trains_on_jax_scenes_with_jax_schedules(tmp_path, monkeypatch):
+    """``train(config)`` with ``use_subset=True`` (Table 1's arms: the first
+    third of the train split, xyz only, attention at SA2 alone) on a 9-room
+    split against the JAX trainer: the sampler holds the same three rooms
+    bit for bit, each step draws the same scene ids, both schedules are
+    keyed to 3 train rooms (not 9), and the logged learning rates are
+    equal."""
+    root = str(tmp_path / "scannet")
+    splits = tscenes.write_synthetic_dataset(root, n_train=9, n_val=1, n_points=3000,
+                                             geometry_coded=True)
+    cfg = dict(data_root=root, input="sampler", model="sem_seg_attention_single_layer",
+               attention_single_layer=1, use_subset=True, use_colors=False,
+               use_normals=False, model_overrides=TINY_CFG, batch_size=2, n_points=128,
+               epochs=4, n_epochs_to_val=10**6, n_devices=1, save_every_epochs=0, seed=4)
+    records = {"jax": {}, "port": {}}
+    for tag, module, sched in (("jax", jds, jsched), ("port", ds, tsched)):
+        for name, fn in _recording(records[tag], module, sched).items():
+            monkeypatch.setattr(module if name.startswith("make") else sched, name, fn)
+    jtrainer.train(JConfig(**cfg, log_dir=str(tmp_path / "jax")), max_steps=3)
+    models = []
+    select = ttrainer.select_model
+    monkeypatch.setattr(ttrainer, "select_model",
+                        lambda *a, **k: models.append(select(*a, **k)) or models[-1])
+    summary = ttrainer.train(TrainConfig(**cfg, log_dir=str(tmp_path / "port")),
+                             device="cpu", max_steps=3)
+    assert summary["final_step"] == 3 and np.isfinite(summary["final_train_loss"])
+    assert [m.sa2.pooling for m in models] == ["attention"]
+    assert [getattr(models[0], f"sa{i}").pooling for i in (1, 3, 4)] == ["max"] * 3
+    j, t = records["jax"], records["port"]
+    first_third = [len(tscenes.load_scene_mapped(root, n)["points"])
+                   for n in splits["train"][:3]]
+    np.testing.assert_array_equal(j["scenes"][0], first_third)
+    for a, b in zip(t["scenes"], j["scenes"]):
+        np.testing.assert_array_equal(a, b)
+    assert len(t["ids"]) == len(j["ids"]) == 3
+    for a, b in zip(t["ids"], j["ids"]):
+        np.testing.assert_array_equal(a, b)
+    for name in ("scannet_learning_rate", "scannet_bn_momentum"):
+        assert t[name] == j[name] == {(2, 3)}, name
+    logs = [read_metrics(str(tmp_path / tag / "train_metrics.jsonl")) for tag in ("port", "jax")]
+    lrs = [[r["learning_rate"] for r in log if "learning_rate" in r] for log in logs]
+    assert len(lrs[0]) == len(lrs[1]) == 3
+    np.testing.assert_allclose(lrs[0], lrs[1], rtol=1e-7)

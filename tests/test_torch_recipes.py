@@ -9,15 +9,20 @@ The learning parity of ``synthetic_convergence`` at the size of
 Tier-1 does not run it.  It runs on the card when there is one (an hour
 on a CPU).
 """
+import argparse
+import inspect
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
 import torch
 
 from pointcloud_segmentation_attention_tpu.recipes import attention_ablation as jablation
+from pointcloud_segmentation_attention_tpu.recipes import attention_wire_parity as jwire
 from pointcloud_segmentation_attention_tpu.recipes import context_margin as jmargin
+from pointcloud_segmentation_attention_tpu.recipes import diversity_matched as jdiversity
 from pointcloud_segmentation_attention_tpu.recipes import feature_ablation as jfeature
 from pointcloud_segmentation_attention_tpu_torch import recipes
 from pointcloud_segmentation_attention_tpu_torch.recipes import (
@@ -27,6 +32,7 @@ from pointcloud_segmentation_attention_tpu_torch.recipes import (
     diversity_matched,
     feature_ablation,
     synthetic_convergence,
+    vendored_runs,
     zero_precompute,
 )
 
@@ -157,6 +163,127 @@ def test_run_refuses_devices_and_missing_card(fn, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             getattr(recipes, fn)(str(tmp_path))
+
+
+# ---- the vendored sizes --------------------------------------------------------------
+
+# vendored file stem -> (port module, JAX module, run function)
+VENDORED = {
+    "attention_ablation": (attention_ablation, jablation, "run_attention_ablation"),
+    "attention_ablation_seed1": (attention_ablation, jablation, "run_attention_ablation"),
+    "feature_ablation": (feature_ablation, jfeature, "run_feature_ablation"),
+    "context_margin": (context_margin, jmargin, "run_context_margin"),
+    "attention_q16_convergence": (attention_wire_parity, jwire, "run_attention_wire_parity"),
+    "diversity_matched": (diversity_matched, jdiversity, "run_diversity_matched"),
+}
+# The three places where a recipe's defaults are not its vendored JSON's, the
+# same in both packages: (stem, argument) -> (default, vendored value).
+# Table 1's seed-1 repeat (its main has no --seed), the 1500 s budget and the
+# 150 epochs of the wire parity.
+VENDORED_EXCEPTIONS = {
+    ("attention_ablation_seed1", "seed"): (0, 1),
+    ("diversity_matched", "budget_s"): (1200.0, 1500.0),
+    ("attention_q16_convergence", "epochs"): (200, 150),
+}
+PORT_ONLY_ARGUMENTS = {"device", "model_overrides"}
+
+
+class _Parsed(Exception):
+    pass
+
+
+def _main_defaults(main, monkeypatch, argv=()) -> dict:
+    """The arguments ``main`` parses from ``argv`` (its defaults where
+    empty), read without running the recipe."""
+    seen = {}
+    real = argparse.ArgumentParser.parse_args
+
+    def parse(self, args=None, namespace=None):
+        seen.update(vars(real(self, list(argv))))
+        raise _Parsed
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", parse)
+    with pytest.raises(_Parsed):
+        main()
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", real)
+    return seen
+
+
+def _vendored(stem: str) -> dict:
+    """The vendored JSON's arguments: its config, and its budget."""
+    with open(os.path.join(ROOT, f"RESULTS_{stem}.json")) as f:
+        out = json.load(f)
+    return dict(out["config"], **({"budget_s": out["budget_s"]} if "budget_s" in out else {}))
+
+
+@pytest.mark.parametrize("stem", list(VENDORED))
+def test_defaults_are_jax_and_the_vendored_sizes(stem, monkeypatch):
+    """Each recipe's ``run_*`` defaults and ``main`` defaults equal the JAX
+    package's, and equal its vendored ``RESULTS_*.json`` but for the three
+    named exceptions; ``vendored_runs`` passes exactly those."""
+    port, jax_module, fn = VENDORED[stem]
+    ours = {k: p.default for k, p in inspect.signature(getattr(port, fn)).parameters.items()}
+    theirs = {k: p.default
+              for k, p in inspect.signature(getattr(jax_module, fn)).parameters.items()}
+    assert set(ours) - set(theirs) <= PORT_ONLY_ARGUMENTS
+    assert {k: ours[k] for k in theirs} == theirs
+    main_ours = _main_defaults(port.main, monkeypatch)
+    main_theirs = _main_defaults(jax_module.main, monkeypatch)
+    assert main_ours.pop("device") == "cuda"
+    assert main_ours == main_theirs
+    vendored = _vendored(stem)
+    differing = {}
+    for key, value in vendored.items():
+        for defaults in (ours, main_ours):
+            if key in defaults:
+                default = defaults[key]
+                if isinstance(default, tuple):
+                    default = list(default)
+                if default != value:
+                    differing[(stem, key)] = (default, value)
+    assert differing == {k: v for k, v in VENDORED_EXCEPTIONS.items() if k[0] == stem}
+    # The runner's command gives the vendored size: parsed by the port's main
+    # (or, for the seed-1 repeat, the call it makes), every argument equals it.
+    argv = vendored_runs.command(stem, "w", "r.json")
+    if argv[1] == "-c":
+        assert "seed=1" in argv[2] and f"import {fn}" in argv[2]
+        return
+    parsed = _main_defaults(port.main, monkeypatch, argv[3:])
+    assert parsed["device"] == "cuda" and parsed["results_path"] == "r.json"
+    for key, value in vendored.items():
+        if key in parsed:
+            assert parsed[key] == value, key
+
+
+def test_vendored_record_wraps_the_result_unchanged(tmp_path):
+    """``vendored_runs.run_one``: the child's JSON unchanged under "result",
+    beside the card line, the command (interpreter by name) and the wall
+    seconds; a child that fails raises with its exit code."""
+    path = str(tmp_path / "r.json")
+    argv = [sys.executable, "-c",
+            f"import json; json.dump({{'config': {{'seed': 1}}}}, open({path!r}, 'w'))"]
+    out = str(tmp_path / "out")
+    rec = vendored_runs.run_one("context_margin", argv, path, out, "card, 700.00 W")
+    with open(os.path.join(out, "RESULTS_context_margin.json")) as f:
+        assert json.load(f) == rec
+    assert rec["result"] == {"config": {"seed": 1}} and rec["device"] == "card, 700.00 W"
+    assert rec["command"] == [os.path.basename(sys.executable), *argv[1:]]
+    assert rec["wall_seconds"] > 0 and os.path.exists(os.path.join(out, "logs",
+                                                                    "context_margin.log"))
+    with pytest.raises(RuntimeError, match="exit code 3"):
+        vendored_runs.run_one("context_margin", [sys.executable, "-c", "raise SystemExit(3)"],
+                              path, out, "card")
+
+
+def test_card_line_refuses_without_nvidia_smi(monkeypatch):
+    """No record is written without its card: where ``nvidia-smi`` cannot be
+    run, ``card_line`` raises rather than naming a device."""
+    def missing(*args, **kwargs):
+        raise FileNotFoundError("nvidia-smi")
+
+    monkeypatch.setattr(vendored_runs.subprocess, "run", missing)
+    with pytest.raises(RuntimeError, match="no card line"):
+        vendored_runs.card_line()
 
 
 @pytest.mark.slow

@@ -250,3 +250,83 @@ def test_chunker_on_the_card_matches_the_twin():
         assert int(n_chunks) == x == len(cs.points)
         np.testing.assert_array_equal(idx.cpu().numpy()[:x], cs.orig_idx)
         np.testing.assert_array_equal(mask.cpu().numpy()[:x], cs.masks)
+
+
+# ---- the reduced-feature layouts (xyz only, one feature) and margin 0 ----------------
+
+# (use_colors, use_normals) of the ablation recipes' serving layouts besides
+# colors + normals: Table 1 serves xyz only, Table 3 each of the four.
+REDUCED_FEATURES = [(False, False), (True, False), (False, True)]
+
+
+@pytest.mark.parametrize("kind", ["f32", "q16"])
+@pytest.mark.parametrize("use_colors, use_normals", REDUCED_FEATURES)
+def test_reduced_feature_layouts_match_jax(use_colors, use_normals, kind):
+    """``SceneLayout.pack`` and ``decode_host`` against JAX's, and the card's
+    decode (here on the CPU) against ``decode_host``, bit for bit, for the
+    layouts that leave colors, normals or both out (fed None, as the server
+    feeds them)."""
+    sc = _scene(2100, 12 + 2 * use_colors + use_normals)
+    colors = sc["colors"] if use_colors else None
+    normals = sc["normals"] if use_normals else None
+    mine = rs.SceneLayout(kind, 4096, use_colors=use_colors, use_normals=use_normals)
+    theirs = jrs.SceneLayout(kind, 4096, use_colors=use_colors, use_normals=use_normals)
+    buf = mine.pack(sc["points"], colors, normals)
+    assert mine.nbytes == theirs.nbytes == len(buf)
+    np.testing.assert_array_equal(buf, theirs.pack(sc["points"], colors, normals))
+    a, b = mine.decode_host(buf), theirs.decode_host(buf)
+    expected = {"points"} | ({"colors"} if use_colors else set()) | (
+        {"normals"} if use_normals else set())
+    assert set(a) == set(b) == expected
+    for k in a:
+        assert a[k].dtype == b[k].dtype, k
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    dev = rs._decode_scene(torch.from_numpy(buf), mine)
+    assert set(dev) == expected
+    for k in a:
+        np.testing.assert_array_equal(dev[k].numpy(), a[k], err_msg=f"{kind} {k}")
+
+
+def _carried(name: str, in_features: int):
+    """(JAX train state, port model) of one tiny ``name`` fed ``in_features``
+    channels, the port's weights carried from JAX's (seeded BN statistics)."""
+    jm = jmodels.get_model(name, num_classes=21, **TINY)
+    feats = jnp.zeros((1, NPOINTS, in_features)) if in_features else None
+    state = create_state(jm, optax.adam(1e-3), jax.random.PRNGKey(1),
+                         jnp.zeros((1, NPOINTS, 3)), feats, train=False)
+    flat = _flat_variables({"params": state.params, "batch_stats": state.batch_stats}, 5)
+    tree = _unflatten(flat)
+    state = state.replace(params=tree["params"], batch_stats=tree["batch_stats"])
+    model = tmodels.get_model(name, device="cpu", in_features=in_features, **TINY)
+    load_jax_variables(flat, model)
+    return state, model
+
+
+@pytest.mark.parametrize("name, use_colors, use_normals, margin", [
+    ("sem_seg", False, False, 0.2),
+    ("sem_seg_features", True, False, 0.2),
+    ("sem_seg", False, False, 0.0),
+])
+def test_reduced_feature_server_equals_host_path_and_jax(name, use_colors, use_normals,
+                                                         margin):
+    """The port's server in the f32 layout, for a tiny xyz-only ``sem_seg``
+    and a tiny colors-only ``sem_seg_features`` (Table 1's and Table 3's
+    layouts) and at ``margin=0`` (Table 4's cells without context): its
+    labels equal the port's host path fed the twin's chunks, and JAX's
+    server's fed the same weights, label for label."""
+    state, model = _carried(name, 3 * use_colors + 3 * use_normals)
+    sc = _scene(2300, 20 + int(10 * margin))
+    kw = dict(seed=3, use_colors=use_colors, use_normals=use_normals, margin=margin)
+    got = _server(model, **kw).predict_scene(sc)
+    cs = rs.deterministic_scene_chunks(sc["points"], [sc["colors"], sc["normals"]], NPOINTS,
+                                       seed=3, margin=margin)
+    host_scene = {"points": cs.points, "colors": cs.features[0],
+                  "normals": cs.features[1].astype(np.float32), "masks": cs.masks,
+                  "orig_idx": cs.orig_idx, "num_vertices": len(sc["points"])}
+    want = full_scene.predict_scene_chunks(full_scene.make_predict_fn(model, device="cpu"),
+                                           host_scene, use_colors, use_normals, batch_size=4)
+    assert got.dtype == np.int32 and got.shape == (len(sc["points"]),)
+    np.testing.assert_array_equal(got, want)
+    theirs = jrs.ResidentSceneServer(state, NPOINTS, batch_size=4, layout="f32",
+                                     pad_multiple=4096, **kw).predict_scene(sc)
+    np.testing.assert_array_equal(got, theirs)
