@@ -520,7 +520,7 @@ def device_ms(fn, calls: int = 10, warmup: int = 2) -> float:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        busy = device_breakdown(prof, 1.0)["device_busy_ms"]
+        busy = device_breakdown(prof, 1.0)["device_ms"]
         if busy > 0:
             return busy / calls
         host = sum(evt.device_type == torch.autograd.DeviceType.CPU for evt in prof.events())
@@ -1578,9 +1578,9 @@ def phase_serve_resident(model, dev, scene_points: int, n_scenes: int, npoints: 
     stage_s, slots = [], []
     stage, fetch = server._stage, server._fetch
 
-    def timed_stage(scene):
+    def timed_stage(scene, request=None):
         t0 = time.perf_counter()
-        out = stage(scene)
+        out = stage(scene, request)
         stage_s.append(time.perf_counter() - t0)
         return out
 

@@ -24,6 +24,7 @@ from pointcloud_segmentation_attention_tpu_torch.data.wire import (
     pack_chunks,
     split_wire_batch,
 )
+from pointcloud_segmentation_attention_tpu_torch.utils import profiler
 
 
 def assemble_features(
@@ -118,7 +119,8 @@ _END = object()
 def prefetch(iterator: Iterable, depth: int = 4) -> Iterator:
     """Run ``iterator`` on a background thread, ``depth`` items ahead; an
     exception of the producer is raised again in the consumer.  Closing the
-    returned generator stops the thread after the item it is producing."""
+    returned generator stops the thread after the item it is producing.
+    The consumer's wait for each item is the span ``prefetch.wait``."""
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     stop = threading.Event()
 
@@ -144,7 +146,8 @@ def prefetch(iterator: Iterable, depth: int = 4) -> Iterator:
     threading.Thread(target=worker, daemon=True).start()
     try:
         while True:
-            item = q.get()
+            with profiler.span("prefetch.wait"):
+                item = q.get()
             if isinstance(item, tuple) and len(item) == 2 and item[0] is _END:
                 if item[1] is not None:
                     raise item[1]

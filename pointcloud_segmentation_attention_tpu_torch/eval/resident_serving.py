@@ -55,6 +55,7 @@ from pointcloud_segmentation_attention_tpu_torch.device import resolve
 from pointcloud_segmentation_attention_tpu_torch.eval.benchmark import export_benchmark_txt
 from pointcloud_segmentation_attention_tpu_torch.parallel.mesh import as_mesh, lane_replicas
 from pointcloud_segmentation_attention_tpu_torch.train.steps import seg_predict_step
+from pointcloud_segmentation_attention_tpu_torch.utils import profiler
 
 _HASH_MULT = np.uint32(2654435761)      # Knuth multiplicative
 _NO_CELL = 2**31 - 1                    # sort key of a non-member entry, past every cell
@@ -581,7 +582,10 @@ class ResidentSceneServer:
     thread up to ``pipeline_depth`` scenes ahead, and keeps that many
     scenes' labels in flight before it waits for the oldest: the u8 labels
     come back into pinned memory, and a CUDA event per scene lets the fetch
-    wait for that scene only.
+    wait for that scene only.  While a profiler session records, each
+    stage, queueing and label wait is a span (``serve.*``, ``utils/profiler``)
+    under the scene's sequence number, and rooms, vertices, scheduled slots
+    and the card's chunks are counted.
 
     ``group_size``: batch this many scenes per upload, call and fetch
     (``make_scene_program_group``); bit-identical to the ungrouped path.
@@ -701,43 +705,56 @@ class ResidentSceneServer:
                 done[-1].record()
         return tuple(out), done
 
-    def _stage(self, scene: Dict[str, np.ndarray]):
+    def _stage(self, scene: Dict[str, np.ndarray], request=None):
         """Host work and the ONE upload of a scene (run on the prefetch
         thread): pack, count the chunks on the decoded coordinates (q16
         moves points by up to half a quantum, enough to flip a margin
-        membership), upload."""
-        points = np.asarray(scene["points"], np.float32)
-        n = len(points)
-        n_pad = self._n_pad(n)
-        layout = self._layout(n_pad)
-        buf = layout.pack(points, scene.get("colors") if self.use_colors else None,
-                          scene.get("normals") if self.use_normals else None)
-        x = self._slots(chunk_count(layout.decode_host(buf)["points"][:n], self.npoints,
-                                    self.chunk_size, self.margin))
-        dbuf, ready = self._upload(buf)
+        membership), upload.  ``request`` (the scene's sequence number in
+        ``predict_scenes``) rides along for the spans."""
+        with profiler.span("serve.stage", request):
+            points = np.asarray(scene["points"], np.float32)
+            n = len(points)
+            n_pad = self._n_pad(n)
+            layout = self._layout(n_pad)
+            with profiler.span("serve.pack"):
+                buf = layout.pack(points, scene.get("colors") if self.use_colors else None,
+                                  scene.get("normals") if self.use_normals else None)
+            with profiler.span("serve.decode_host"):
+                decoded = layout.decode_host(buf)["points"][:n]
+            with profiler.span("serve.chunk_count"):
+                x = self._slots(chunk_count(decoded, self.npoints, self.chunk_size,
+                                            self.margin))
+            with profiler.span("serve.upload"):
+                dbuf, ready = self._upload(buf)
+            profiler.count("serve.rooms")
+            profiler.count("serve.vertices", n)
         return (scene.get("scene_name"), n, n_pad, _bucket(x, 4 * self.batch_size), x,
-                dbuf, ready)
+                dbuf, ready, request)
 
     def _compute(self, staged):
         """Queue one staged scene's program and the copy of its labels; no
         host sync.  Returns (name, n, host labels, host n_chunks, event,
-        scheduled slots)."""
-        name, n, n_pad, x_cap, x, dbuf, ready = staged
-        self._on_compute_stream(dbuf, ready)
-        nb = -(-x // self.batch_size)
-        labels, n_chunks = self._program(n_pad, x_cap, nb, False)(dbuf, n)
-        (labels, n_chunks), done = self._to_host(labels[:n], n_chunks)
-        return name, n, labels, n_chunks, done, nb * self.batch_size
+        scheduled slots, request)."""
+        name, n, n_pad, x_cap, x, dbuf, ready, request = staged
+        with profiler.span("serve.compute", request):
+            self._on_compute_stream(dbuf, ready)
+            nb = -(-x // self.batch_size)
+            labels, n_chunks = self._program(n_pad, x_cap, nb, False)(dbuf, n)
+            (labels, n_chunks), done = self._to_host(labels[:n], n_chunks)
+        profiler.count("serve.slots", nb * self.batch_size)
+        return name, n, labels, n_chunks, done, nb * self.batch_size, request
 
     def _fetch(self, computed) -> Tuple[str, np.ndarray]:
         """Wait for one scene's labels.  The guard that the scheduled predict
         batches covered every chunk of the card's chunker lives here: a
         shortfall raises, it never stitches label 0 into the chunks left
         out."""
-        name, n, labels, n_chunks, done, cap = computed
-        for event in done or ():
-            event.synchronize()
+        name, n, labels, n_chunks, done, cap, request = computed
+        with profiler.span("serve.label_wait", request):
+            for event in done or ():
+                event.synchronize()
         nc = int(n_chunks)
+        profiler.count("serve.chunks", nc)
         if nc > cap:
             raise RuntimeError(
                 f"the card's chunker produced {nc} chunks for scene {name!r} but only "
@@ -747,52 +764,66 @@ class ResidentSceneServer:
 
     # -- several scenes a call (group_size > 1) -----------------------------
 
-    def _stage_group(self, group):
+    def _stage_group(self, group, request=None):
         """Pack ``<= n_lanes`` scenes at a common bucket (the chunks do not
         depend on n_pad or x_cap) and upload them as one (K, nbytes)
         buffer, or under a mesh each to its lane's device; a short group is
-        filled with copies of its last buffer."""
-        names = [s.get("scene_name") for s in group]
-        pts = [np.asarray(s["points"], np.float32) for s in group]
-        ns = [len(p) for p in pts]
-        n_pad = self._n_pad(max(ns))
-        layout = self._layout(n_pad)
-        packed = [layout.pack(p, s.get("colors") if self.use_colors else None,
-                              s.get("normals") if self.use_normals else None)
-                  for p, s in zip(pts, group)]
-        x = self._slots(max(chunk_count(layout.decode_host(b)["points"][:n], self.npoints,
-                                        self.chunk_size, self.margin)
-                            for b, n in zip(packed, ns)))
-        n_fill = self.n_lanes - len(group)
-        packed += [packed[-1]] * n_fill
-        if self.mesh is not None:
-            dbufs, ready = zip(*(self._upload(b, d) for b, d in zip(packed, self.mesh.devices)))
-        else:
-            dbufs, ready = self._upload(np.stack(packed))
+        filled with copies of its last buffer.  ``request``: the group's
+        sequence number."""
+        with profiler.span("serve.stage", request):
+            names = [s.get("scene_name") for s in group]
+            pts = [np.asarray(s["points"], np.float32) for s in group]
+            ns = [len(p) for p in pts]
+            n_pad = self._n_pad(max(ns))
+            layout = self._layout(n_pad)
+            with profiler.span("serve.pack"):
+                packed = [layout.pack(p, s.get("colors") if self.use_colors else None,
+                                      s.get("normals") if self.use_normals else None)
+                          for p, s in zip(pts, group)]
+            with profiler.span("serve.decode_host"):
+                decoded = [layout.decode_host(b)["points"][:n] for b, n in zip(packed, ns)]
+            with profiler.span("serve.chunk_count"):
+                x = self._slots(max(chunk_count(d, self.npoints, self.chunk_size, self.margin)
+                                    for d in decoded))
+            n_fill = self.n_lanes - len(group)
+            packed += [packed[-1]] * n_fill
+            with profiler.span("serve.upload"):
+                if self.mesh is not None:
+                    dbufs, ready = zip(*(self._upload(b, d)
+                                         for b, d in zip(packed, self.mesh.devices)))
+                else:
+                    dbufs, ready = self._upload(np.stack(packed))
+            profiler.count("serve.rooms", len(group))
+            profiler.count("serve.vertices", sum(ns))
         return (names, ns + [ns[-1]] * n_fill, len(group), n_pad,
-                _bucket(x, 4 * self.batch_size), x, dbufs, ready)
+                _bucket(x, 4 * self.batch_size), x, dbufs, ready, request)
 
     def _compute_group(self, staged):
-        names, ns, n_real, n_pad, x_cap, x, dbufs, ready = staged
-        nb = -(-x // self.batch_size)
-        program = self._program(n_pad, x_cap, nb, True)
-        if self.mesh is not None:
-            for b, r in zip(dbufs, ready):
-                self._on_compute_stream(b, r)
-            labels, n_chunks = program(dbufs, ns)
-            host, done = self._to_host(*labels, *n_chunks)
-            labels, n_chunks = host[:self.n_lanes], host[self.n_lanes:]
-        else:
-            self._on_compute_stream(dbufs, ready)
-            (labels, n_chunks), done = self._to_host(*program(dbufs, ns))
-        return names, ns, n_real, labels, n_chunks, done, nb * self.batch_size
+        names, ns, n_real, n_pad, x_cap, x, dbufs, ready, request = staged
+        with profiler.span("serve.compute", request):
+            nb = -(-x // self.batch_size)
+            program = self._program(n_pad, x_cap, nb, True)
+            if self.mesh is not None:
+                for b, r in zip(dbufs, ready):
+                    self._on_compute_stream(b, r)
+                labels, n_chunks = program(dbufs, ns)
+                host, done = self._to_host(*labels, *n_chunks)
+                labels, n_chunks = host[:self.n_lanes], host[self.n_lanes:]
+            else:
+                self._on_compute_stream(dbufs, ready)
+                (labels, n_chunks), done = self._to_host(*program(dbufs, ns))
+        # Every lane runs nb batches, a short group's filler lanes too.
+        profiler.count("serve.slots", len(ns) * nb * self.batch_size)
+        return names, ns, n_real, labels, n_chunks, done, nb * self.batch_size, request
 
     def _fetch_group(self, computed):
-        names, ns, n_real, labels, n_chunks, done, cap = computed
-        for event in done or ():
-            event.synchronize()
+        names, ns, n_real, labels, n_chunks, done, cap, request = computed
+        with profiler.span("serve.label_wait", request):
+            for event in done or ():
+                event.synchronize()
         ncs = np.stack([np.asarray(t) for t in n_chunks]).reshape(-1)
         labs = [np.asarray(t) for t in labels]
+        profiler.count("serve.chunks", int(ncs[:n_real].sum()))
         for i in range(n_real):
             if int(ncs[i]) > cap:
                 raise RuntimeError(
@@ -836,7 +867,8 @@ class ResidentSceneServer:
                 yield self._fetch(c)
 
             items = iter(scenes)
-        staged = prefetch((stage(s) for s in items), depth=self.pipeline_depth)
+        staged = prefetch((stage(s, request) for request, s in enumerate(items)),
+                          depth=self.pipeline_depth)
         pending = deque()
         try:
             for st in staged:

@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from pointcloud_segmentation_attention_tpu_torch.nn.layers import Dense, Dropout, mixed_matmul
+from pointcloud_segmentation_attention_tpu_torch.utils import profiler
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -46,7 +47,8 @@ class AttentionPool(nn.Module):
     """Multi-head scaled dot-product attention pooling of a point group,
     queried by one vector per group (its first element, or its centroid).
     ``c_in`` and ``c_query`` are the group's and the query's channels.
-    Returns (B, npoint, num_heads * key_dim)."""
+    Returns (B, npoint, num_heads * key_dim).  Under a profiler the forward
+    is the span ``nn.attention_pool``."""
 
     def __init__(self, c_in: int, c_query: int, output_dim: int, key_dim: int,
                  num_heads: int = 16, compute_dtype: torch.dtype = torch.float32):
@@ -58,13 +60,14 @@ class AttentionPool(nn.Module):
         self.value_net = Dense(c_in, output_dim * num_heads, compute_dtype)
 
     def forward(self, group_feats: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
-        b, npoint, nsample, _ = group_feats.shape
-        h, kd = self.num_heads, self.key_dim
-        # Raw row-major split (B, np, S, h*kd) -> (B, np, h, S, kd).
-        q = self.query_net(query).reshape(b, npoint, h, 1, kd)
-        k = self.key_net(group_feats).reshape(b, npoint, h, nsample, kd)
-        v = self.value_net(group_feats).reshape(b, npoint, h, nsample, kd)
-        return _attend(q, k, v, self.compute_dtype).reshape(b, npoint, h * kd)
+        with profiler.span("nn.attention_pool"):
+            b, npoint, nsample, _ = group_feats.shape
+            h, kd = self.num_heads, self.key_dim
+            # Raw row-major split (B, np, S, h*kd) -> (B, np, h, S, kd).
+            q = self.query_net(query).reshape(b, npoint, h, 1, kd)
+            k = self.key_net(group_feats).reshape(b, npoint, h, nsample, kd)
+            v = self.value_net(group_feats).reshape(b, npoint, h, nsample, kd)
+            return _attend(q, k, v, self.compute_dtype).reshape(b, npoint, h * kd)
 
 
 class InnerAttention(nn.Module):

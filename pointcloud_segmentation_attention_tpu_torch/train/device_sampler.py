@@ -71,6 +71,7 @@ from pointcloud_segmentation_attention_tpu_torch.train.device_replay import (
     rotate_batch_z,
 )
 from pointcloud_segmentation_attention_tpu_torch.train.train_state import TrainState
+from pointcloud_segmentation_attention_tpu_torch.utils import profiler
 
 _N_VOXELS = int(np.prod(OCCUPANCY_GRID))
 _SENTINEL_VX = 2 ** 30
@@ -400,18 +401,25 @@ def make_sampling_train_step(scenes: ResidentScenes, npoints: int, *, class_weig
     (``rotate_batch_z``, seeded by (seed, 77, state.step)).  With a
     data-parallel ``mesh`` the step takes the global scene ids and runs on
     this rank's rows (``parallel.data_parallel``); explicit ``draws`` are
-    then this rank's rows."""
+    then this rank's rows.  Under a profiler the step is the span
+    ``train.step`` (counted in ``train.steps``), the chunks' cut
+    ``train.sample`` within it."""
 
     def step(state: TrainState, scene_ids, seed: int = 0, draws=None):
-        dev = scenes.device
-        ids = torch.as_tensor(scene_ids).to(dev, non_blocking=True)
-        if draws is None:
-            draws = make_draws(scenes, ids, npoints, _sampler_generator(dev, seed, state.step))
-        batch = sample_chunk_batch(scenes, ids, draws, npoints, class_weights,
-                                   occupancy=occupancy)
-        if augment:
-            batch = rotate_batch_z(batch, scenes, _augment_generator(dev, seed, state.step))
-        return steps.seg_train_step(state, batch, seed, **step_kwargs)
+        with profiler.span("train.step", state.step):
+            profiler.count("train.steps")
+            dev = scenes.device
+            with profiler.span("train.sample"):
+                ids = torch.as_tensor(scene_ids).to(dev, non_blocking=True)
+                if draws is None:
+                    draws = make_draws(scenes, ids, npoints,
+                                       _sampler_generator(dev, seed, state.step))
+                batch = sample_chunk_batch(scenes, ids, draws, npoints, class_weights,
+                                           occupancy=occupancy)
+                if augment:
+                    batch = rotate_batch_z(batch, scenes,
+                                           _augment_generator(dev, seed, state.step))
+            return steps.seg_train_step(state, batch, seed, **step_kwargs)
 
     return data_parallel(step, mesh)
 

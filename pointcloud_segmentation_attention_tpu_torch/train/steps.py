@@ -37,6 +37,7 @@ from pointcloud_segmentation_attention_tpu_torch.parallel.mesh import (
 )
 from pointcloud_segmentation_attention_tpu_torch.train import losses, metrics, schedules
 from pointcloud_segmentation_attention_tpu_torch.train.train_state import TrainState
+from pointcloud_segmentation_attention_tpu_torch.utils import profiler
 
 # ScanNet class weights 1/log(1.2 + freq), class 0 = 0.
 SCANNET_CLASS_WEIGHTS = (
@@ -225,7 +226,9 @@ def seg_train_step(
     After the step each parameter's ``.grad`` holds this step's gradient.
     ``remat``: 'none', 'full' (the forward and loss recomputed in the
     backward) or 'dots' (only the matmul outputs kept); all three give the
-    same step.
+    same step.  Under a profiler the forward (with the loss), the backward
+    (with the BN updates) and the optimizer are the spans
+    ``train.forward``, ``train.backward`` and ``train.optimizer``.
     """
     model = state.model
     dev = _device_of(model)
@@ -234,10 +237,13 @@ def seg_train_step(
     generator = _dropout_generator(dev, dropout_seed, state.step)
     model.train()
     model.zero_grad(set_to_none=True)
-    loss, logits, bn_records = _loss_and_logits(model, batch, bn_momentum, generator, remat)
-    loss.backward()
-    apply_bn_updates(bn_records)
-    lr = state.apply_gradients()
+    with profiler.span("train.forward", state.step):
+        loss, logits, bn_records = _loss_and_logits(model, batch, bn_momentum, generator, remat)
+    with profiler.span("train.backward", state.step):
+        loss.backward()
+        apply_bn_updates(bn_records)
+    with profiler.span("train.optimizer", state.step):
+        lr = state.apply_gradients()
     _, out = _batch_metrics(logits.detach(), batch["labels"], num_classes, loss)
     out["learning_rate"] = lr
     return state, out

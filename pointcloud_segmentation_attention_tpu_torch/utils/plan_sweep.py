@@ -66,7 +66,7 @@ def device_us(fn, repeats: int = 3) -> float:
             for _ in range(CALLS):
                 fn()
             torch.cuda.synchronize()
-        times.append(device_breakdown(prof, 1.0)["device_busy_ms"] * 1e3 / CALLS)
+        times.append(device_breakdown(prof, 1.0)["device_ms"] * 1e3 / CALLS)
     found = [t for t in times if t > 0]
     return float(np.median(found)) if found else float("nan")
 

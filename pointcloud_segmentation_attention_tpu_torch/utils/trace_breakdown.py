@@ -13,32 +13,37 @@ windows with ``torch.profiler`` (CPU + CUDA activities):
    (chunk, predict in batches, stitch), with the host time of each stage on
    the host clock.
    ``serve_resident``: three such rooms through ``ResidentSceneServer`` (q16,
-   two rooms in flight) after a warm-up room; before the window, one room
-   stage by stage: the host stage (pack, decode, chunk count) on the host clock,
-   then upload, chunker (decode included), forwards, stitch and the label
-   fetch between CUDA events on one stream (each span includes any wait
-   for the host to queue it).
+   two rooms in flight) after a warm-up room, with the server's own spans
+   (``serve.*``: the staging thread's stage, pack, decode, chunk count and
+   upload; the queueing of each room's program; the label wait) and its
+   counters, a room each.
 3. ``train``: ``STEPS`` training steps (``seg_train_step``) at B16 x 8192 on
-   batches of random chunks of synthetic rooms, made before the window.
+   batches of random chunks of synthetic rooms, made before the window, with
+   the step's ``train.*`` spans.
 
 For each window it prints the device time per kernel group (the CUDA
-kernels of ``csrc/`` by name, GEMMs, the rest), the window's wall time and
-the device's busy share (kernel time over wall).  The JSON result and a
-Chrome trace of each window go to the output directory ``OUT`` (named with
-the model for any but ``sem_seg_features``, and ``_bf16`` for bf16).
+kernels of ``csrc/`` by name, GEMMs, the rest), the window's wall time, the
+device's busy share (the union of kernel intervals over wall), the kernel
+time by the innermost program span around each launch, and the longest
+idle gaps labelled by the program spans open across them.  The JSON result
+and a Chrome trace of each window (every thread the window starts
+included) go to the output directory ``OUT`` (named with the model for any
+but ``sem_seg_features``, and ``_bf16`` for bf16).
 """
 from __future__ import annotations
 
 import argparse
+import bisect
+import itertools
 import json
 import os
 import subprocess
 import time
 from collections import defaultdict
+from typing import Optional
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 from pointcloud_segmentation_attention_tpu_torch import models
 from pointcloud_segmentation_attention_tpu_torch.data.pipeline import (
@@ -61,6 +66,7 @@ from pointcloud_segmentation_attention_tpu_torch.train import (
     seg_predict_step,
     seg_train_step,
 )
+from pointcloud_segmentation_attention_tpu_torch.utils import profiler
 
 # Substrings of the csrc/ kernels' names; each is a group of its own.  Both
 # backwards build a CSR with csrc/csr.cuh's passes (csr_walk/scan/fused_kernel),
@@ -76,6 +82,12 @@ EXTENT = np.array([1.9, 1.9, 2.6], np.float32)
 BATCH, NPOINTS, STEPS, SCENE_POINTS, SEED = 16, 8192, 5, 150_000, 0
 OUT = "chiprun_out"
 TOP_KERNELS = 12
+TOP_GAPS = 10
+
+
+def _is_copy(name: str) -> bool:
+    low = name.lower()
+    return "memcpy" in low or "memset" in low
 
 
 def _group(name: str) -> str:
@@ -87,7 +99,7 @@ def _group(name: str) -> str:
     low = name.lower()
     if "gemm" in low or "cutlass" in low or "xmma" in low:
         return "gemm"
-    if "memcpy" in low or "memset" in low:
+    if _is_copy(name):
         return "memcpy/memset"
     if "reduce_kernel" in low:
         return "reductions (BN statistics, sums)"
@@ -96,90 +108,178 @@ def _group(name: str) -> str:
     return "other kernels"
 
 
+def _device_events(prof):
+    """The profiler's device events: kernels, copies and sets (a GPU user
+    annotation, e.g. ``Optimizer.step#Adam.step``, spans the kernels it
+    encloses; counting it would count them twice)."""
+    return [evt for evt in prof.events()
+            if evt.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(evt, "is_user_annotation", False)]
+
+
+def _union(intervals):
+    """Sorted disjoint intervals covering ``intervals`` ((start, end) pairs)."""
+    merged = []
+    for a, b in sorted(intervals):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    return merged
+
+
 def device_breakdown(prof, wall_s: float) -> dict:
-    """Device microseconds per kernel group from the profiler's CUDA events."""
+    """Device time by kernel group from the profiler's CUDA events:
+    ``device_ms``, every kernel, copy and set summed; ``busy_ms``, the
+    union of the kernels' intervals (streams that overlap counted once,
+    copies and sets not counted), and its share of ``wall_s``."""
     groups = defaultdict(float)
     count = defaultdict(int)
     by_name = defaultdict(float)
-    for evt in prof.events():
-        # A GPU user annotation (e.g. ``Optimizer.step#Adam.step``) spans the
-        # kernels it encloses; counting it would count them twice.
-        if (evt.device_type != torch.autograd.DeviceType.CUDA
-                or getattr(evt, "is_user_annotation", False)):
-            continue
+    kernels = []
+    for evt in _device_events(prof):
         g = _group(evt.name)
         us = evt.time_range.elapsed_us()
         groups[g] += us
         count[g] += 1
         by_name[evt.name[:100]] += us
-    busy_us = sum(groups.values())
+        if not _is_copy(evt.name):
+            kernels.append((evt.time_range.start, evt.time_range.end))
+    device_us = sum(groups.values())
+    busy_us = sum(b - a for a, b in _union(kernels))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP_KERNELS]
     return {
         "wall_ms": wall_s * 1e3,
-        "device_busy_ms": busy_us / 1e3,
+        "device_ms": device_us / 1e3,
+        "busy_ms": busy_us / 1e3,
         "device_busy_share": busy_us / (wall_s * 1e6) if wall_s > 0 else None,
-        "groups": {g: {"ms": us / 1e3, "count": count[g], "share_of_busy": us / busy_us}
+        "groups": {g: {"ms": us / 1e3, "count": count[g], "share": us / device_us}
                    for g, us in sorted(groups.items(), key=lambda kv: -kv[1])},
-        "top_kernels": [{"name": n, "ms": us / 1e3, "share_of_busy": us / busy_us}
+        "top_kernels": [{"name": n, "ms": us / 1e3, "share": us / device_us}
                         for n, us in top],
     }
 
 
+def _is_span(name: str) -> bool:
+    return name.startswith(profiler.SPAN_PREFIXES)
+
+
+def _span_index(events) -> dict:
+    """Per thread, the program spans on the timeline sorted by start (an
+    enclosing span before a nested one that starts with it), their starts,
+    and the latest end of each prefix."""
+    by_thread = defaultdict(list)
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU and _is_span(e.name):
+            by_thread[e.thread].append((e.time_range.start, e.time_range.end, e.name))
+    index = {}
+    for thread, spans in by_thread.items():
+        spans.sort(key=lambda x: (x[0], -x[1]))
+        index[thread] = ([x[0] for x in spans], list(itertools.accumulate(
+            (x[1] for x in spans), max)), spans)
+    return index
+
+
+def _innermost(entry, t) -> Optional[str]:
+    """The innermost span of one thread's ``_span_index`` entry open at
+    ``t``: the latest-starting one that contains it."""
+    starts, reach, spans = entry
+    i = bisect.bisect_right(starts, t) - 1
+    while i >= 0 and reach[i] > t:
+        if spans[i][1] > t:
+            return spans[i][2]
+        i -= 1
+    return None
+
+
+def _open_at(index: dict, t) -> str:
+    """The innermost program span open at ``t`` on each thread, joined."""
+    return "+".join(sorted(n for n in (_innermost(e, t) for e in index.values()) if n))
+
+
+def kernel_ms_by_span(prof) -> dict:
+    """Kernel time (copies and sets left out) by the innermost program span
+    (``utils/profiler.span``) around each kernel's launch.  The launch is
+    the CUDA API event that shares the kernel's correlation id (an ATen
+    op's launch and the ctypes launches of ``ops/cuda`` alike); its span
+    is the first program span among its CPU parents, else the innermost one
+    open on its thread at the launch, and on a thread with no program span
+    (autograd's backward threads) the innermost ones open on the other
+    threads.  Kernels with none count as ``(no program span)``."""
+    events = prof.events()
+    index = _span_index(events)
+    launches = {e.id: e for e in events if e.device_type == torch.autograd.DeviceType.CPU
+                and e.name.startswith("cu") and "Launch" in e.name}
+    out = defaultdict(float)
+    for k in _device_events(prof):
+        if _is_copy(k.name):
+            continue
+        launch, label = launches.get(k.id), None
+        if launch is not None:
+            owner = launch.cpu_parent
+            while owner is not None and not _is_span(owner.name):
+                owner = owner.cpu_parent
+            if owner is not None:
+                label = owner.name
+            elif launch.thread in index:
+                label = _innermost(index[launch.thread], launch.time_range.start)
+            else:
+                label = _open_at(index, launch.time_range.start)
+        out[label or "(no program span)"] += k.time_range.elapsed_us() / 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def idle_gaps(prof, top: int = TOP_GAPS) -> list:
+    """The ``top`` longest stretches of the profiled window (first host
+    event to last event) in which no kernel ran, longest first, as
+    ``[label, ms]``: the label joins, over threads, the innermost program
+    span open at the stretch's midpoint."""
+    events = prof.events()
+    if not events:
+        return []
+    w0 = min(e.time_range.start for e in events)
+    w1 = max(e.time_range.end for e in events)
+    merged = _union([(e.time_range.start, e.time_range.end) for e in _device_events(prof)
+                     if not _is_copy(e.name)])
+    edges = [w0] + [x for iv in merged for x in iv] + [w1]
+    gaps = sorted(((b - a, a, b) for a, b in zip(edges[0::2], edges[1::2]) if b > a),
+                  reverse=True)[:top]
+    index = _span_index(events)
+    return [[_open_at(index, (a + b) / 2) or "(no span)", length / 1e3]
+            for length, a, b in gaps]
+
+
+def span_report(snap: dict, prefix: str, units: int) -> dict:
+    """The host time of ``snap``'s (``utils.profiler.snapshot()``) spans
+    whose names start with ``prefix``, in ms per unit (room or step):
+    count, total and self time."""
+    return {name: {"count": v["count"], "total_ms": 1e3 * v["total_s"] / units,
+                   "self_ms": 1e3 * v["self_s"] / units}
+            for name, v in sorted(snap["spans"].items()) if name.startswith(prefix)}
+
+
 def _print(title: str, res: dict) -> None:
-    print(f"== {title}: wall {res['wall_ms']:.3f} ms, device busy {res['device_busy_ms']:.3f} ms "
-          f"(busy share {res['device_busy_share']:.3f})", flush=True)
+    print(f"== {title}: wall {res['wall_ms']:.3f} ms, device busy {res['busy_ms']:.3f} ms "
+          f"(busy share {res['device_busy_share']:.3f}; kernels, copies and sets "
+          f"{res['device_ms']:.3f} ms)", flush=True)
     for g, v in res["groups"].items():
         print(f"   {g:26s} {v['ms']:10.3f} ms  {v['count']:6d} launches  "
-              f"{100 * v['share_of_busy']:5.1f} % of busy", flush=True)
+              f"{100 * v['share']:5.1f} % of device time", flush=True)
     print("   top kernels by device time:")
     for k in res["top_kernels"]:
-        print(f"     {k['ms']:9.3f} ms {100 * k['share_of_busy']:5.1f} %  {k['name']}", flush=True)
+        print(f"     {k['ms']:9.3f} ms {100 * k['share']:5.1f} %  {k['name']}", flush=True)
+    if res.get("kernel_ms_by_span"):
+        print("   kernel time by program span: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in res["kernel_ms_by_span"].items()), flush=True)
+    if res.get("idle_gaps"):
+        print("   longest idle gaps: " + ", ".join(
+            f"{label} {ms:.3f} ms" for label, ms in res["idle_gaps"]), flush=True)
 
 
-def resident_stages(server: rs.ResidentSceneServer, scene: dict) -> dict:
-    """One room through the resident pipeline's pieces, one after another:
-    the host stage's pack, ``decode_host`` and ``chunk_count`` ms (host
-    clock), then upload, chunker, forwards, stitch and fetch ms between CUDA
-    events on the current stream."""
-    dev = server.device
-    points = scene["points"]
-    n = len(points)
-    n_pad = server._n_pad(n)
-    layout = server._layout(n_pad)
-    t0 = time.perf_counter()
-    buf = layout.pack(points, scene["colors"], scene["normals"])
-    t1 = time.perf_counter()
-    decoded = layout.decode_host(buf)["points"][:n]
-    t2 = time.perf_counter()
-    x = server._slots(rs.chunk_count(decoded, server.npoints, server.chunk_size, server.margin))
-    t3 = time.perf_counter()
-    host = {"pack_ms": (t1 - t0) * 1e3, "decode_host_ms": (t2 - t1) * 1e3,
-            "chunk_count_ms": (t3 - t2) * 1e3, "stage_ms": (t3 - t0) * 1e3}
-    b = server.batch_size
-    x_cap, nb = rs._bucket(x, 4 * b), -(-x // b)
-    predict = rs.make_resident_predict_step(server.model, layout, b, server.npoints)
-    stitch = rs.make_stitch(n_pad)
-    pinned = torch.from_numpy(buf).pin_memory()
-    out = torch.empty(n, dtype=torch.uint8, pin_memory=True)
-    torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-    ev[0].record()
-    dbuf = pinned.to(dev, non_blocking=True)
-    ev[1].record()
-    decoded = rs._decode_scene(dbuf, layout)
-    idx, mask, _ = rs._chunk_points(decoded["points"], n, x_cap, server.npoints, server.seed,
-                                    server.chunk_size, server.margin)
-    ev[2].record()
-    labels = torch.cat([predict(decoded, idx[i * b:(i + 1) * b]) for i in range(nb)])
-    ev[3].record()
-    stitched = stitch(labels, idx[:nb * b], mask[:nb * b])
-    ev[4].record()
-    out.copy_(stitched[:n], non_blocking=True)
-    ev[5].record()
-    ev[5].synchronize()
-    names = ("upload_ms", "chunker_ms", "forwards_ms", "stitch_ms", "fetch_ms")
-    spans = {k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(names)}
-    return {**host, **spans, "batches": nb, "upload_bytes": len(buf)}
+def _window(prof, wall_s: float) -> dict:
+    res = device_breakdown(prof, wall_s)
+    res.update(kernel_ms_by_span=kernel_ms_by_span(prof), idle_gaps=idle_gaps(prof))
+    return res
 
 
 def main() -> int:
@@ -209,14 +309,13 @@ def main() -> int:
         seg_predict_step(model, pts, feats)
     torch.cuda.synchronize()
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
+    with profiler.profile_all_threads() as prof:
         t0 = time.perf_counter()
         for _ in range(STEPS):
             seg_predict_step(model, pts, feats)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    fwd = device_breakdown(prof, wall)
+    fwd = _window(prof, wall)
     fwd["per_forward_ms"] = wall * 1e3 / STEPS
     prof.export_chrome_trace(os.path.join(OUT, f"trace_forward{suffix}.json"))
     _print(f"{name} forward x{STEPS} (B{BATCH} x {NPOINTS})", fwd)
@@ -229,44 +328,47 @@ def main() -> int:
     predict(wc["points"][:BATCH], assemble_features(
         wc["colors"][:BATCH], wc["normals"][:BATCH], use_feats, use_feats))
     torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
+    with profiler.profile_all_threads() as prof:
         t0 = time.perf_counter()
         chunks = scene_chunks(scene, NPOINTS, seed=0)
         t1 = time.perf_counter()
         labels = predict_scene_chunks(predict, chunks, use_feats, use_feats, BATCH)
         t2 = time.perf_counter()
     stages = {"chunk_ms": (t1 - t0) * 1e3, "predict_and_stitch_ms": (t2 - t1) * 1e3}
-    srv = device_breakdown(prof, t2 - t0)
+    srv = _window(prof, t2 - t0)
     srv.update(stages, chunks=len(chunks["points"]), points=len(labels))
     prof.export_chrome_trace(os.path.join(OUT, f"trace_serve{suffix}.json"))
     _print(f"serve one scene ({len(labels)} points, {len(chunks['points'])} chunks)", srv)
     print(f"   host stages: chunk {stages['chunk_ms']:.1f} ms, predict + stitch "
           f"{stages['predict_and_stitch_ms']:.1f} ms", flush=True)
 
-    # Resident serving: one room stage by stage, then three pipelined.
+    # Resident serving: a warm-up room, then three pipelined under the server's spans.
     rooms = [dict(make_synthetic_scene(SCENE_POINTS, seed=SEED + 10 + s), scene_name=str(s))
              for s in range(4)]
     server = rs.ResidentSceneServer(model, NPOINTS, batch_size=BATCH, layout="q16",
                                     pipeline_depth=2, use_colors=use_feats,
                                     use_normals=use_feats, device=dev)
     server.predict_scene(rooms[0])
-    parts = resident_stages(server, rooms[1])
-    with profile(activities=acts) as prof:
+    profiler.reset()
+    with profiler.profile_all_threads() as prof:
         t0 = time.perf_counter()
         served = list(server.predict_scenes(iter(rooms[1:])))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    res = device_breakdown(prof, wall)
+    snap = profiler.snapshot()
+    res = _window(prof, wall)
     n_res = sum(len(labels) for _, labels in served)
-    res.update(parts, rooms=len(served), points=n_res, per_room_ms=wall * 1e3 / len(served),
-               points_per_s=n_res / wall)
+    counters = snap["counters"]
+    res.update(rooms=len(served), points=n_res, per_room_ms=wall * 1e3 / len(served),
+               points_per_s=n_res / wall, counters=counters,
+               spans_per_room=span_report(snap, "", len(served)),
+               slot_use=counters["serve.chunks"] / counters["serve.slots"])
     prof.export_chrome_trace(os.path.join(OUT, f"trace_serve_resident{suffix}.json"))
     _print(f"serve resident, {len(served)} rooms ({n_res} points, q16, pipelined)", res)
-    print("   one room stage by stage: " + ", ".join(
-        f"{k} {parts[k]:.2f}" for k in ("stage_ms", "pack_ms", "decode_host_ms",
-                                        "chunk_count_ms", "upload_ms", "chunker_ms",
-                                        "forwards_ms", "stitch_ms", "fetch_ms"))
-          + f" ({parts['batches']} batches, {parts['upload_bytes']} bytes uploaded)", flush=True)
+    print("   the server's spans, ms a room (total / self): " + ", ".join(
+        f"{k} {v['total_ms']:.2f} / {v['self_ms']:.2f}"
+        for k, v in res["spans_per_room"].items())
+          + f"; slots used {100 * res['slot_use']:.1f} % ({counters})", flush=True)
 
     # Training: batches of random chunks, made before the window.
     rooms = [make_synthetic_scene(SCENE_POINTS, seed=SEED + 3 + s) for s in range(2)]
@@ -286,16 +388,21 @@ def main() -> int:
     for b in batches[:3]:
         seg_train_step(state, b)
     torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
+    profiler.reset()
+    with profiler.profile_all_threads() as prof:
         t0 = time.perf_counter()
         for b in batches[3:]:
             seg_train_step(state, b)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    trn = device_breakdown(prof, wall)
+    trn = _window(prof, wall)
     trn["per_step_ms"] = wall * 1e3 / STEPS
+    trn["spans_per_step"] = span_report(profiler.snapshot(), "train.", STEPS)
     prof.export_chrome_trace(os.path.join(OUT, f"trace_train{suffix}.json"))
     _print(f"{name} train x{STEPS} (B{BATCH} x {NPOINTS})", trn)
+    print("   the step's spans, ms a step (total / self): " + ", ".join(
+        f"{k} {v['total_ms']:.2f} / {v['self_ms']:.2f}"
+        for k, v in trn["spans_per_step"].items()), flush=True)
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,

@@ -83,7 +83,7 @@ dist, idx = native.three_nn(four[None, :2], four[None])  # the host oracles
 assert idx.tolist() == [[[0, 1, 3], [1, 0, 3]]], idx
 idx, cnt = native.ball_query(four[None], four[None, :1], 1.5, 2)
 assert idx.tolist() == [[[0, 1]]] and cnt.tolist() == [[2]], (idx, cnt)
-from pointcloud_segmentation_attention_tpu_torch.utils import StepTimer, trace  # noqa: F401
+from pointcloud_segmentation_attention_tpu_torch.utils import trace  # noqa: F401
 
 from pointcloud_segmentation_attention_tpu_torch.data.scannet import precompute, scenes
 from pointcloud_segmentation_attention_tpu_torch.train import trainer

@@ -210,9 +210,9 @@ def test_chunk_slack_guard_raises(weights):
     out."""
     _, model = weights
     server = _server(model)
-    name, n, n_pad, x_cap, x, dbuf, ready = server._stage(_scene(2200, 9))
+    name, n, n_pad, x_cap, x, dbuf, ready, request = server._stage(_scene(2200, 9))
     assert x > server.batch_size
-    short = (name, n, n_pad, x_cap, server.batch_size, dbuf, ready)  # one batch scheduled
+    short = (name, n, n_pad, x_cap, server.batch_size, dbuf, ready, request)  # one batch
     with pytest.raises(RuntimeError, match="slack was exceeded"):
         server._fetch(server._compute(short))
 
