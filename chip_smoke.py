@@ -3771,9 +3771,9 @@ def _counted_lanes(lane_counts: list):
         program = make(*args, **kwargs)
 
         def wrap(i, lane):
-            def run(buf, n):
+            def run(*staged):
                 before = kernels.launch_counts()
-                out = lane(buf, n)
+                out = lane(*staged)
                 for k, v in kernels.launch_counts().items():
                     lane_counts[i][k] = lane_counts[i].get(k, 0) + v - before[k]
                 return out

@@ -6,16 +6,21 @@ once, as a single packed u8 buffer (q16: 12 B/point), and everything else
 happens there, as plain tensor ops:
 
 - the full-coverage grid chunker (``make_scene_chunker``, the card's twin of
-  ``chunks.full_scene_chunks``): ONE sort groups the (cell, hash, point)
-  membership entries, a top-k extracts the kept-cell table, and small table
-  arithmetic plus one gather turn chunk slots into point ids;
+  ``chunks.full_scene_chunks``) in two phases: ``_chunk_runs`` groups the
+  (cell, hash, point) membership entries by ONE sort and counts the chunks;
+  ``_chunk_table`` extracts the kept-cell table by a top-k and turns chunk
+  slots into point ids by small table arithmetic plus one gather;
 - the chunk batches gather their points and features from the decoded
   scene and run the eval forward (``make_resident_predict_step``, the
   kernels through ``ops/dispatch.py``);
 - the argmaxed labels go back to vertex order by one scatter
   (``make_stitch``): every vertex is mask-True exactly once;
-- the whole pipeline is one call per scene (``make_scene_program``) that
-  queues its work without a host sync; the labels come back as u8.
+- the server stages a scene on a thread of its own (pack, upload, decode,
+  phase 1), reads the card's chunk count back (one 0-dim copy), and lays the
+  chunks out for exactly the predict batches that count needs (phase 2);
+  the forwards and the stitch are one call per scene
+  (``make_scene_program``) that queues its work without a host sync; the
+  labels come back as u8.
 
 Chunk composition is deterministic (a keyed integer hash replaces the host
 chunker's ``rng.permutation``, modulo fill replaces its random tail fill)
@@ -25,7 +30,9 @@ fed the same chunks.
 
 The port's own copy of the JAX package's ``eval/resident_serving.py``: the
 host twins and the packed layouts give the same bytes and chunks, the card
-side gives the same chunks as its ``make_scene_chunker``.  ``mesh=`` serves
+side gives the same chunks as its ``make_scene_chunker``.  (JAX's server
+counts the chunks on the host and compiles the decode, the chunker and the
+forwards into one program; here the card counts them.)  ``mesh=`` serves
 a scene per device (``make_scene_program_mesh``): groups of one scene a
 lane share a bucket, each lane runs the single-device program on its own
 device with its own model replica, and there are no collectives, so the
@@ -36,7 +43,7 @@ from __future__ import annotations
 import contextlib
 import os
 from collections import deque
-from typing import Dict, Iterator, Optional, Sequence, Tuple
+from typing import Dict, Iterator, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -344,14 +351,32 @@ def _decode_scene(buf: torch.Tensor, layout: SceneLayout) -> Dict[str, torch.Ten
     return out
 
 
-def _chunk_points(xyz: torch.Tensor, n: int, x_cap: int, npoints: int, seed: int,
-                  chunk_size: float, margin: float):
-    """The chunker on decoded points ``xyz`` (n_pad, 3), of which the first
-    ``n`` are the scene's: ``(idx (x_cap, npoints) int32, mask bool,
-    n_chunks int32 0-dim)``, all on ``xyz``'s device, queued without a host
-    sync.  The f32 grid arithmetic is ``_memberships_np``'s, op for op; the
-    constants are f32 device tensors and the divisions tensor divisions
-    (CUDA divides by a Python number as a product with its reciprocal)."""
+class _Runs(NamedTuple):
+    """Phase 1 of the card's chunker (``_chunk_runs``): the sorted membership
+    entries and their runs of equal cells, all (4 n,) on the scene's device.
+    Enough to count the chunks, and, given the slots to fill, to lay them
+    out (``_chunk_table``)."""
+    packed_s: torch.Tensor       # sorted entries: pid << 1 | home flag
+    run_start: torch.Tensor      # first entry of the entry's run
+    run_len: torch.Tensor        # length of the entry's run
+    heads: torch.Tensor          # bool: the first entry of a kept cell
+    chunks_of_run: torch.Tensor  # ceil(run_len / npoints)
+    cum: torch.Tensor            # inclusive cumsum of the heads' chunks
+
+    @property
+    def n_chunks(self) -> torch.Tensor:
+        """The scene's chunk count, exact: 0-dim int64."""
+        return self.cum[-1]
+
+
+def _chunk_runs(xyz: torch.Tensor, n: int, npoints: int, seed: int, chunk_size: float,
+                margin: float) -> _Runs:
+    """Phase 1 of the chunker on decoded points ``xyz`` (n_pad, 3), of which
+    the first ``n`` are the scene's: the grid, ONE sort, the runs, the
+    heads and their cumsum, queued without a host sync.  The f32 grid
+    arithmetic is ``_memberships_np``'s, op for op; the constants are f32
+    device tensors and the divisions tensor divisions (CUDA divides by a
+    Python number as a product with its reciprocal)."""
     dev = xyz.device
     i64 = torch.int64
 
@@ -385,7 +410,6 @@ def _chunk_points(xyz: torch.Tensor, n: int, x_cap: int, npoints: int, seed: int
     pid = torch.arange(n, dtype=i64, device=dev)
     key = (torch.where(member, cell, _NO_CELL) << 32) | _hash32_torch(pid, seed)[:, None]
     key_s, entry_s = torch.sort(key.reshape(-1), stable=True)
-    e_total = 4 * n
     cell_s = key_s >> 32
     pid_s = entry_s // 4
     is_home_s = cell_s == home_id[pid_s]
@@ -395,21 +419,33 @@ def _chunk_points(xyz: torch.Tensor, n: int, x_cap: int, npoints: int, seed: int
     run_start = torch.searchsorted(cell_s, cell_s)
     next_start = torch.searchsorted(cell_s, cell_s, right=True)
     run_len = next_start - run_start
-    iota = torch.arange(e_total, dtype=i64, device=dev)
+    iota = torch.arange(4 * n, dtype=i64, device=dev)
     homes = torch.cat([torch.zeros(1, dtype=i64, device=dev), torch.cumsum(is_home_s, 0)])
     # Kept cells: >= 1 home entry in the run; their first entries are heads.
     heads = (run_start == iota) & (cell_s < _NO_CELL) & (homes[next_start] > homes[run_start])
     chunks_of_run = (run_len + npoints - 1) // npoints
     cum = torch.cumsum(torch.where(heads, chunks_of_run, 0), 0)
-    n_chunks = cum[-1]
+    return _Runs(packed_s, run_start, run_len, heads, chunks_of_run, cum)
+
+
+def _chunk_table(runs: _Runs, x_cap: int, npoints: int):
+    """Phase 2 of the chunker: ``(idx (x_cap, npoints) int32, mask bool,
+    n_chunks int32 0-dim)`` from phase 1's ``runs``, queued without a host
+    sync.  A chunk's composition does not depend on ``x_cap``; rows past
+    ``n_chunks`` hold point 0, mask False."""
+    dev = runs.cum.device
+    i64 = torch.int64
+    e_total = runs.packed_s.numel()
+    n_chunks = runs.n_chunks
 
     # Kept-cell table (<= x_cap rows: every kept cell has >= 1 chunk): the
     # heads' positions, ascending, by one top-k.
     k = min(x_cap, e_total)
-    head_pos = torch.topk(torch.where(heads, -iota, -(2**40)), k).indices
-    cell_valid = torch.arange(k, device=dev) < heads.sum()
-    t_rs, t_len = run_start[head_pos], run_len[head_pos]
-    t_base = cum[head_pos] - chunks_of_run[head_pos]                # chunks before the cell
+    iota = torch.arange(e_total, dtype=i64, device=dev)
+    head_pos = torch.topk(torch.where(runs.heads, -iota, -(2**40)), k).indices
+    cell_valid = torch.arange(k, device=dev) < runs.heads.sum()
+    t_rs, t_len = runs.run_start[head_pos], runs.run_len[head_pos]
+    t_base = runs.cum[head_pos] - runs.chunks_of_run[head_pos]      # chunks before the cell
 
     # Chunk x's cell: the last kept cell whose base <= x.
     x_ids = torch.arange(x_cap, dtype=i64, device=dev)
@@ -422,11 +458,18 @@ def _chunk_points(xyz: torch.Tensor, n: int, x_cap: int, npoints: int, seed: int
             + torch.arange(npoints, dtype=i64, device=dev)[None, :])  # (X, npoints)
     real = slot < c_len[:, None]
     entry = (c_rs[:, None] + slot % c_len[:, None]).clamp(0, e_total - 1)  # modulo tail
-    got = packed_s[entry]
+    got = runs.packed_s[entry]
     in_chunks = (x_ids < n_chunks)[:, None]
     idx = torch.where(in_chunks, got >> 1, 0).to(torch.int32)
     mask = real & ((got & 1) == 1) & in_chunks
     return idx, mask, n_chunks.to(torch.int32)
+
+
+def _chunk_points(xyz: torch.Tensor, n: int, x_cap: int, npoints: int, seed: int,
+                  chunk_size: float, margin: float):
+    """The whole chunker on decoded points: phase 1 (``_chunk_runs``), then
+    phase 2 (``_chunk_table``) at ``x_cap`` rows, all on ``xyz``'s device."""
+    return _chunk_table(_chunk_runs(xyz, n, npoints, seed, chunk_size, margin), x_cap, npoints)
 
 
 def make_scene_chunker(layout: SceneLayout, x_cap: int, npoints: int, seed: int = 0,
@@ -482,26 +525,25 @@ def make_stitch(n_pad: int):
     return stitch
 
 
-def make_scene_program(model: nn.Module, layout: SceneLayout, x_cap: int, nb: int,
-                       batch_size: int, npoints: int, seed: int = 0,
-                       chunk_size: float = CHUNK_SIZE, margin: float = CONTEXT_MARGIN):
-    """``(scene_buf u8 tensor, n) -> ((n_pad,) u8 labels, n_chunks)``: the
-    whole per-scene pipeline as one call that queues its work on the current
-    stream without a host sync: decode once, chunk, ``nb`` predict batches
-    (the JAX package compiles them into one program; here they are ``nb``
-    forwards one after another), stitch.  Batches past the last chunk hold
-    point 0, and their labels go to the stitch's dropped slot."""
-    check_grid_geometry(chunk_size, margin)
+def make_scene_program(model: nn.Module, layout: SceneLayout, nb: int, batch_size: int,
+                       npoints: int):
+    """``(scene, idx, mask, n_chunks) -> ((n_pad,) u8 labels, n_chunks)``:
+    the per-scene work after the chunker as one call that queues it on the
+    current stream without a host sync: ``nb`` predict batches (the JAX
+    package compiles them with the decode and the chunker into one program;
+    here they are ``nb`` forwards one after another) and the stitch.
+    ``scene`` is ``_decode_scene``'s, ``(idx, mask, n_chunks)`` the
+    chunker's (``_chunk_table``), with at least ``nb * batch_size`` rows.
+    Rows past the last chunk hold point 0, and their labels go to the
+    stitch's dropped slot."""
     predict = make_resident_predict_step(model, layout, batch_size, npoints)
     stitch = make_stitch(layout.n_pad)
     slots = nb * batch_size
-    if slots > x_cap:
-        raise ValueError(f"{nb} batches of {batch_size} exceed the chunk capacity {x_cap}")
 
-    def program(buf: torch.Tensor, n: int):
-        scene = _decode_scene(buf, layout)
-        idx, mask, n_chunks = _chunk_points(scene["points"], n, x_cap, npoints, seed,
-                                            chunk_size, margin)
+    def program(scene: Dict[str, torch.Tensor], idx: torch.Tensor, mask: torch.Tensor,
+                n_chunks: torch.Tensor):
+        if slots > len(idx):
+            raise ValueError(f"{nb} batches of {batch_size} exceed the chunk capacity {len(idx)}")
         labels = torch.cat([predict(scene, idx[b * batch_size:(b + 1) * batch_size])
                             for b in range(nb)])
         # n_chunks rides back with the labels, so the host can check that the
@@ -511,55 +553,51 @@ def make_scene_program(model: nn.Module, layout: SceneLayout, x_cap: int, nb: in
     return program
 
 
-def make_scene_program_group(model: nn.Module, layout: SceneLayout, x_cap: int, nb: int,
-                             batch_size: int, npoints: int, seed: int = 0,
-                             chunk_size: float = CHUNK_SIZE,
-                             margin: float = CONTEXT_MARGIN):
-    """``(bufs (K, nbytes) u8, ns (K,)) -> ((K, n_pad) u8, (K,) n_chunks)``:
-    K scenes a call on one device, one upload and one fetch for the group
-    (the per-scene programs run one after another)."""
-    body = make_scene_program(model, layout, x_cap, nb, batch_size, npoints, seed,
-                              chunk_size, margin)
+def make_scene_program_group(model: nn.Module, layout: SceneLayout, nb: int, batch_size: int,
+                             npoints: int):
+    """``(staged) -> ((K, n_pad) u8, (K,) n_chunks)``: K scenes a call on
+    one device, ``staged`` a ``(scene, idx, mask, n_chunks)`` each from one
+    upload, and one fetch for the group (the per-scene programs run one
+    after another)."""
+    body = make_scene_program(model, layout, nb, batch_size, npoints)
 
-    def multi(bufs: torch.Tensor, ns: Sequence[int]):
-        out = [body(bufs[k], int(n)) for k, n in enumerate(ns)]
+    def multi(staged: Sequence[tuple]):
+        out = [body(*s) for s in staged]
         return torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out])
 
     return multi
 
 
 class _LanePrograms:
-    """The scene-per-device program: ``(bufs, ns) -> ([labels (n_pad,) u8],
+    """The scene-per-device program: ``(staged) -> ([labels (n_pad,) u8],
     [n_chunks])``, lane i running ``lanes[i]`` (a ``make_scene_program``
-    on its device) on ``bufs[i]``, one lane after another from the calling
-    thread (each lane's work queues on its device's current stream)."""
+    on its device) on ``staged[i]``, one lane after another from the
+    calling thread (each lane's work queues on its device's current
+    stream)."""
 
     def __init__(self, lanes, devices):
         self.lanes = lanes
         self.devices = devices
 
-    def __call__(self, bufs, ns):
+    def __call__(self, staged):
         out = []
-        for lane, dev, buf, n in zip(self.lanes, self.devices, bufs, ns):
+        for lane, dev, s in zip(self.lanes, self.devices, staged):
             with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
-                out.append(lane(buf, int(n)))
+                out.append(lane(*s))
         return [o[0] for o in out], [o[1] for o in out]
 
 
-def make_scene_program_mesh(model: nn.Module, layout: SceneLayout, x_cap: int, nb: int,
-                            batch_size: int, npoints: int, mesh, seed: int = 0,
-                            chunk_size: float = CHUNK_SIZE, margin: float = CONTEXT_MARGIN,
-                            replicas=None):
+def make_scene_program_mesh(model: nn.Module, layout: SceneLayout, nb: int, batch_size: int,
+                            npoints: int, mesh, replicas=None):
     """Scene-per-device serving over a 1-D serving mesh (a
-    ``parallel.Mesh`` or a list of devices): ``(bufs, ns) -> ([(n_pad,) u8
-    labels], [n_chunks])``, lane i running the whole per-scene program on
-    its scene's buffer (on ``mesh.devices[i]``) with a replica of ``model``
+    ``parallel.Mesh`` or a list of devices): ``(staged) -> ([(n_pad,) u8
+    labels], [n_chunks])``, lane i running the per-scene program on its
+    scene's chunks (on ``mesh.devices[i]``) with a replica of ``model``
     there (``replicas``, default ``parallel.lane_replicas``).  Zero
     collectives: each lane's labels equal ``make_scene_program``'s."""
     mesh = as_mesh(mesh)
     replicas = replicas or lane_replicas(model, mesh)
-    lanes = [make_scene_program(r, layout, x_cap, nb, batch_size, npoints, seed, chunk_size,
-                                margin) for r in replicas]
+    lanes = [make_scene_program(r, layout, nb, batch_size, npoints) for r in replicas]
     return _LanePrograms(lanes, list(mesh.devices.flat))
 
 
@@ -576,26 +614,29 @@ class ResidentSceneServer:
 
     ``model``: an ``nn.Module`` (run in eval mode) moved to ``device``
     (``"cuda"`` unless the caller asks for the CPU; no fallback).  Programs
-    are cached per (n_pad, x_cap, nb); scene sizes are bucketed to
-    multiples of ``pad_multiple``.  ``predict_scenes`` stages scenes (pack,
-    chunk count, upload from pinned memory on a copy stream) on a prefetch
-    thread up to ``pipeline_depth`` scenes ahead, and keeps that many
-    scenes' labels in flight before it waits for the oldest: the u8 labels
-    come back into pinned memory, and a CUDA event per scene lets the fetch
-    wait for that scene only.  While a profiler session records, each
-    stage, queueing and label wait is a span (``serve.*``, ``utils/profiler``)
-    under the scene's sequence number, and rooms, vertices, scheduled slots
-    and the card's chunks are counted.
+    are cached per (n_pad, nb); scene sizes are bucketed to multiples of
+    ``pad_multiple``.  ``predict_scenes`` stages scenes on a prefetch thread
+    up to ``pipeline_depth`` scenes ahead: pack, upload from pinned memory
+    and the card's chunker on the device's high-priority staging stream,
+    which reads its chunk count back so that the serving thread queues
+    exactly the predict batches the scene needs (``_stage_chunks``).  It
+    keeps that many scenes' labels in flight before it waits for the
+    oldest: the u8 labels come back into pinned memory, and a CUDA event
+    per scene lets the fetch wait for that scene only.  While a profiler
+    session records, each stage, queueing and label wait is a span
+    (``serve.*``, ``utils/profiler``) under the scene's sequence number, and
+    rooms, vertices, scheduled slots and the card's chunks are counted.
 
     ``group_size``: batch this many scenes per upload, call and fetch
     (``make_scene_program_group``); bit-identical to the ungrouped path.
 
     ``mesh``: a 1-D serving mesh (a ``parallel.Mesh`` or a list of devices,
     which may repeat one) serves a scene per device: groups of
-    ``len(mesh)`` scenes are packed to a common bucket, each uploaded to its
-    lane's device and run by ``make_scene_program_mesh``, bit-identical to
-    the single-device path.  A one-device mesh is the single-device path on
-    that device; ``mesh`` and ``group_size > 1`` are exclusive.
+    ``len(mesh)`` scenes are packed to a common bucket, each uploaded to and
+    chunked on its lane's device and run by ``make_scene_program_mesh``,
+    bit-identical to the single-device path.  A one-device mesh is the
+    single-device path on that device; ``mesh`` and ``group_size > 1`` are
+    exclusive.
     """
 
     def __init__(self, model: nn.Module, npoints: int, batch_size: int = 16,
@@ -618,6 +659,10 @@ class ResidentSceneServer:
         SceneLayout(layout, pad_multiple)  # refuses an unknown layout here
         self.mesh = mesh
         self.device = resolve(mesh.device if mesh is not None else device)
+        self._cuda = self.device.type == "cuda"
+        if self._cuda and self.device.index is None:
+            # Indexed, as uploaded tensors' devices are: it keys the staging streams.
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.model = model.to(self.device)
         self._replicas = lane_replicas(self.model, mesh) if mesh is not None else None
         self.n_lanes = mesh.size if mesh is not None else max(1, int(group_size))
@@ -632,8 +677,7 @@ class ResidentSceneServer:
         self.chunk_size = chunk_size
         self.margin = margin
         self._programs = {}
-        self._cuda = self.device.type == "cuda"
-        self._upload_streams = {}
+        self._staging_streams = {}
 
     def _n_pad(self, n: int) -> int:
         # Linear buckets: the padding (and the upload) grows by at most
@@ -643,49 +687,97 @@ class ResidentSceneServer:
     def _layout(self, n_pad: int) -> SceneLayout:
         return SceneLayout(self.layout_kind, n_pad, self.use_colors, self.use_normals)
 
-    def _slots(self, x: int) -> int:
-        """Chunks to schedule for ``x`` counted on the host.  q16: one batch
-        of slack, as the JAX package schedules, in case the card's count
-        drifts from the host's by a cell's ceil; ``_fetch`` raises if it is
-        ever exceeded.  (The f32 membership arithmetic is exact.)"""
-        return x + (self.batch_size if self.layout_kind == "q16" else 0)
-
-    def _program(self, n_pad: int, x_cap: int, nb: int, group: bool):
-        key = (n_pad, x_cap, nb, group)
+    def _program(self, n_pad: int, nb: int, group: bool):
+        key = (n_pad, nb, group)
         if key not in self._programs:
-            args = (self.model, self._layout(n_pad), x_cap, nb, self.batch_size, self.npoints)
-            kw = dict(seed=self.seed, chunk_size=self.chunk_size, margin=self.margin)
+            args = (self.model, self._layout(n_pad), nb, self.batch_size, self.npoints)
             if self.mesh is not None:
-                program = make_scene_program_mesh(*args, self.mesh, replicas=self._replicas, **kw)
+                program = make_scene_program_mesh(*args, self.mesh, replicas=self._replicas)
             else:
-                program = (make_scene_program_group if group else make_scene_program)(*args, **kw)
+                program = (make_scene_program_group if group else make_scene_program)(*args)
             self._programs[key] = program
         return self._programs[key]
 
-    def _upload(self, buf: np.ndarray, device: Optional[torch.device] = None):
-        """(buffer on ``device`` (default the server's), event its copy
-        completes on, or None on the CPU).  On a card the copy runs from
-        pinned memory on the device's upload stream, so it overlaps the
-        compute stream's work."""
-        device = device or self.device
-        host = torch.from_numpy(buf)
+    @contextlib.contextmanager
+    def _staging(self, device: torch.device):
+        """Queue on ``device``'s staging stream and yield it (None on the
+        CPU).  One a device, of high priority, so that the chunker's few
+        dozen small kernels do not wait behind the compute stream's
+        forwards while the staging thread waits for the count."""
         if not self._cuda:
-            return host.to(device), None
-        host = host.pin_memory()
-        if device not in self._upload_streams:
-            self._upload_streams[device] = torch.cuda.Stream(device)
-        stream = self._upload_streams[device]
+            yield None
+            return
+        stream = self._staging_streams.get(device)
+        if stream is None:
+            stream = self._staging_streams[device] = torch.cuda.Stream(device, priority=-1)
         with torch.cuda.stream(stream):
-            dbuf = host.to(device, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record(stream)
-        return dbuf, ready
+            yield stream
 
-    def _on_compute_stream(self, dbuf: torch.Tensor, ready) -> None:
-        if ready is not None:
-            stream = torch.cuda.current_stream(dbuf.device)
-            stream.wait_event(ready)
-            dbuf.record_stream(stream)  # the allocator must not reuse it early
+    @staticmethod
+    def _recorded(stream):
+        """An event recorded on ``stream`` now (None for no stream)."""
+        if stream is None:
+            return None
+        event = torch.cuda.Event()
+        event.record(stream)
+        return event
+
+    def _upload(self, buf: np.ndarray, device: torch.device) -> torch.Tensor:
+        """``buf`` on ``device``.  On a card the copy runs from pinned memory
+        on the device's staging stream, so it overlaps the compute stream's
+        work, and the chunker queued after it on that stream reads it."""
+        host = torch.from_numpy(buf)
+        with self._staging(device) as stream:
+            if stream is None:
+                return host.to(device)
+            return host.pin_memory().to(device, non_blocking=True)
+
+    def _stage_chunks(self, layout: SceneLayout, dbufs: Sequence[torch.Tensor],
+                      ns: Sequence[int]):
+        """The card's chunker on uploaded scene buffers (the staging
+        thread).  On each buffer's staging stream: decode it, run phase 1
+        (``_chunk_runs``) and copy its chunk count into pinned memory; then
+        wait for every count, and on each stream queue phase 2
+        (``_chunk_table``) at the slots the largest count ``x`` needs.
+        Returns (x, [(scene, idx, mask, n_chunks)] a buffer, [event its
+        chunks are ready on, None on the CPU] a buffer)."""
+        runs, counts, copied = [], [], []
+        with profiler.span("serve.chunk_count"):
+            for dbuf, n in zip(dbufs, ns):
+                with self._staging(dbuf.device) as stream:
+                    scene = _decode_scene(dbuf, layout)
+                    r = _chunk_runs(scene["points"], n, self.npoints, self.seed,
+                                    self.chunk_size, self.margin)
+                    count = r.n_chunks
+                    if stream is not None:
+                        count = torch.empty((), dtype=count.dtype, pin_memory=True).copy_(
+                            count, non_blocking=True)
+                        copied.append(self._recorded(stream))
+                runs.append((scene, r))
+                counts.append(count)
+            with profiler.span("serve.chunk_wait"):
+                for event in copied:
+                    event.synchronize()
+                x = max(int(c) for c in counts)
+        x_cap = _bucket(x, 4 * self.batch_size)
+        staged, ready = [], []
+        for dbuf, (scene, r) in zip(dbufs, runs):
+            with self._staging(dbuf.device) as stream:
+                staged.append((scene, *_chunk_table(r, x_cap, self.npoints)))
+                ready.append(self._recorded(stream))
+        return x, staged, ready
+
+    def _on_compute_stream(self, staged, ready) -> None:
+        """Make the compute stream wait for a staged scene's chunks, and keep
+        the allocator from reusing its tensors (made on the staging stream)
+        before the compute stream is done with them."""
+        if ready is None:
+            return
+        scene, idx, mask, n_chunks = staged
+        stream = torch.cuda.current_stream(idx.device)
+        stream.wait_event(ready)
+        for t in (*scene.values(), idx, mask, n_chunks):
+            t.record_stream(stream)
 
     def _to_host(self, *tensors: torch.Tensor):
         """Queue copies of ``tensors`` into pinned host memory; returns the
@@ -705,12 +797,22 @@ class ResidentSceneServer:
                 done[-1].record()
         return tuple(out), done
 
+    @staticmethod
+    def _check_slots(name, nc: int, cap: int) -> None:
+        """The guard that the scheduled predict batches covered every chunk
+        of the card's chunker: a shortfall raises, it never stitches label
+        0 into the chunks left out."""
+        if nc > cap:
+            raise RuntimeError(
+                f"the card's chunker produced {nc} chunks for scene {name!r} but only "
+                f"{cap} predict slots were scheduled: the slack was exceeded, so the slots "
+                "were not scheduled from the card's own count")
+
     def _stage(self, scene: Dict[str, np.ndarray], request=None):
-        """Host work and the ONE upload of a scene (run on the prefetch
-        thread): pack, count the chunks on the decoded coordinates (q16
-        moves points by up to half a quantum, enough to flip a margin
-        membership), upload.  ``request`` (the scene's sequence number in
-        ``predict_scenes``) rides along for the spans."""
+        """Host work, the ONE upload and the chunker of a scene (run on the
+        prefetch thread): pack, upload, and the card's chunker with its
+        count read back (``_stage_chunks``).  ``request`` (the scene's
+        sequence number in ``predict_scenes``) rides along for the spans."""
         with profiler.span("serve.stage", request):
             points = np.asarray(scene["points"], np.float32)
             n = len(points)
@@ -719,47 +821,35 @@ class ResidentSceneServer:
             with profiler.span("serve.pack"):
                 buf = layout.pack(points, scene.get("colors") if self.use_colors else None,
                                   scene.get("normals") if self.use_normals else None)
-            with profiler.span("serve.decode_host"):
-                decoded = layout.decode_host(buf)["points"][:n]
-            with profiler.span("serve.chunk_count"):
-                x = self._slots(chunk_count(decoded, self.npoints, self.chunk_size,
-                                            self.margin))
             with profiler.span("serve.upload"):
-                dbuf, ready = self._upload(buf)
+                dbuf = self._upload(buf, self.device)
+            x, (chunks,), (ready,) = self._stage_chunks(layout, [dbuf], [n])
             profiler.count("serve.rooms")
             profiler.count("serve.vertices", n)
-        return (scene.get("scene_name"), n, n_pad, _bucket(x, 4 * self.batch_size), x,
-                dbuf, ready, request)
+        return scene.get("scene_name"), n, n_pad, x, chunks, ready, request
 
     def _compute(self, staged):
-        """Queue one staged scene's program and the copy of its labels; no
-        host sync.  Returns (name, n, host labels, host n_chunks, event,
-        scheduled slots, request)."""
-        name, n, n_pad, x_cap, x, dbuf, ready, request = staged
+        """Queue one staged scene's program, ``ceil(x / batch_size)``
+        batches, and the copy of its labels; no host sync.  Returns (name,
+        n, host labels, host n_chunks, event, scheduled slots, request)."""
+        name, n, n_pad, x, chunks, ready, request = staged
+        nb = -(-x // self.batch_size)
         with profiler.span("serve.compute", request):
-            self._on_compute_stream(dbuf, ready)
-            nb = -(-x // self.batch_size)
-            labels, n_chunks = self._program(n_pad, x_cap, nb, False)(dbuf, n)
+            self._on_compute_stream(chunks, ready)
+            labels, n_chunks = self._program(n_pad, nb, False)(*chunks)
             (labels, n_chunks), done = self._to_host(labels[:n], n_chunks)
         profiler.count("serve.slots", nb * self.batch_size)
         return name, n, labels, n_chunks, done, nb * self.batch_size, request
 
     def _fetch(self, computed) -> Tuple[str, np.ndarray]:
-        """Wait for one scene's labels.  The guard that the scheduled predict
-        batches covered every chunk of the card's chunker lives here: a
-        shortfall raises, it never stitches label 0 into the chunks left
-        out."""
+        """Wait for one scene's labels, and check the slots (``_check_slots``)."""
         name, n, labels, n_chunks, done, cap, request = computed
         with profiler.span("serve.label_wait", request):
             for event in done or ():
                 event.synchronize()
         nc = int(n_chunks)
         profiler.count("serve.chunks", nc)
-        if nc > cap:
-            raise RuntimeError(
-                f"the card's chunker produced {nc} chunks for scene {name!r} but only "
-                f"{cap} predict slots were scheduled: the q16 host/card chunk-count "
-                "slack was exceeded; raise it in ResidentSceneServer._slots")
+        self._check_slots(name, nc, cap)
         return name, labels.numpy().astype(np.int32)
 
     # -- several scenes a call (group_size > 1) -----------------------------
@@ -767,7 +857,8 @@ class ResidentSceneServer:
     def _stage_group(self, group, request=None):
         """Pack ``<= n_lanes`` scenes at a common bucket (the chunks do not
         depend on n_pad or x_cap) and upload them as one (K, nbytes)
-        buffer, or under a mesh each to its lane's device; a short group is
+        buffer, or under a mesh each to its lane's device, then chunk them
+        there (``_stage_chunks``: one count, the largest); a short group is
         filled with copies of its last buffer.  ``request``: the group's
         sequence number."""
         with profiler.span("serve.stage", request):
@@ -780,38 +871,32 @@ class ResidentSceneServer:
                 packed = [layout.pack(p, s.get("colors") if self.use_colors else None,
                                       s.get("normals") if self.use_normals else None)
                           for p, s in zip(pts, group)]
-            with profiler.span("serve.decode_host"):
-                decoded = [layout.decode_host(b)["points"][:n] for b, n in zip(packed, ns)]
-            with profiler.span("serve.chunk_count"):
-                x = self._slots(max(chunk_count(d, self.npoints, self.chunk_size, self.margin)
-                                    for d in decoded))
             n_fill = self.n_lanes - len(group)
             packed += [packed[-1]] * n_fill
+            ns_lanes = ns + [ns[-1]] * n_fill
             with profiler.span("serve.upload"):
                 if self.mesh is not None:
-                    dbufs, ready = zip(*(self._upload(b, d)
-                                         for b, d in zip(packed, self.mesh.devices)))
+                    dbufs = [self._upload(b, d) for b, d in zip(packed, self.mesh.devices)]
                 else:
-                    dbufs, ready = self._upload(np.stack(packed))
+                    dbufs = list(self._upload(np.stack(packed), self.device))
+            x, chunks, ready = self._stage_chunks(layout, dbufs, ns_lanes)
             profiler.count("serve.rooms", len(group))
             profiler.count("serve.vertices", sum(ns))
-        return (names, ns + [ns[-1]] * n_fill, len(group), n_pad,
-                _bucket(x, 4 * self.batch_size), x, dbufs, ready, request)
+        return names, ns_lanes, len(group), n_pad, x, chunks, ready, request
 
     def _compute_group(self, staged):
-        names, ns, n_real, n_pad, x_cap, x, dbufs, ready, request = staged
+        names, ns, n_real, n_pad, x, chunks, ready, request = staged
+        nb = -(-x // self.batch_size)
         with profiler.span("serve.compute", request):
-            nb = -(-x // self.batch_size)
-            program = self._program(n_pad, x_cap, nb, True)
+            for c, r in zip(chunks, ready):
+                self._on_compute_stream(c, r)
+            program = self._program(n_pad, nb, True)
             if self.mesh is not None:
-                for b, r in zip(dbufs, ready):
-                    self._on_compute_stream(b, r)
-                labels, n_chunks = program(dbufs, ns)
+                labels, n_chunks = program(chunks)
                 host, done = self._to_host(*labels, *n_chunks)
                 labels, n_chunks = host[:self.n_lanes], host[self.n_lanes:]
             else:
-                self._on_compute_stream(dbufs, ready)
-                (labels, n_chunks), done = self._to_host(*program(dbufs, ns))
+                (labels, n_chunks), done = self._to_host(*program(chunks))
         # Every lane runs nb batches, a short group's filler lanes too.
         profiler.count("serve.slots", len(ns) * nb * self.batch_size)
         return names, ns, n_real, labels, n_chunks, done, nb * self.batch_size, request
@@ -825,12 +910,7 @@ class ResidentSceneServer:
         labs = [np.asarray(t) for t in labels]
         profiler.count("serve.chunks", int(ncs[:n_real].sum()))
         for i in range(n_real):
-            if int(ncs[i]) > cap:
-                raise RuntimeError(
-                    f"the card's chunker produced {int(ncs[i])} chunks for scene "
-                    f"{names[i]!r} but only {cap} predict slots were scheduled: the q16 "
-                    "host/card chunk-count slack was exceeded; raise it in "
-                    "ResidentSceneServer._slots")
+            self._check_slots(names[i], int(ncs[i]), cap)
             yield names[i], labs[i][:ns[i]].astype(np.int32)
 
     # -- public API ------------------------------------------------------

@@ -14,8 +14,9 @@ windows with ``torch.profiler`` (CPU + CUDA activities):
    the host clock.
    ``serve_resident``: three such rooms through ``ResidentSceneServer`` (q16,
    two rooms in flight) after a warm-up room, with the server's own spans
-   (``serve.*``: the staging thread's stage, pack, decode, chunk count and
-   upload; the queueing of each room's program; the label wait) and its
+   (``serve.*``: the staging thread's stage, pack, upload and the card's
+   chunk count with its wait; the queueing of each room's program; the
+   label wait) and its
    counters, a room each.
 3. ``train``: ``STEPS`` training steps (``seg_train_step``) at B16 x 8192 on
    batches of random chunks of synthetic rooms, made before the window, with

@@ -10,8 +10,13 @@ seeded non-trivial BN, is carried from JAX into the port with
   integer and f32 arithmetic done op for op;
 - the card's-side decode (here on the CPU) equals ``decode_host`` bit for
   bit, q16 included (correctly rounded divisions);
+- the chunker's two phases compose to ``make_scene_chunker``, and the
+  count the server stages from them equals ``chunk_count`` on the decoded
+  coordinates and JAX's; the scheduled slots are exactly the batches that
+  count needs;
 - the port's server equals the port's host path fed the same deterministic
-  chunks, label for label: the same chunks, features and model;
+  chunks, and the card's chunker's chunks fed through its predict step,
+  label for label: the same chunks, features and model;
 - against JAX's server >= 99.9 % of labels: the logits differ by the
   matmuls' summation order, which can flip a near-tie;
 - q16 against f32 >= 98 %, JAX's own limit (0.05 mm of quantisation).
@@ -24,6 +29,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from pointcloud_segmentation_attention_tpu import models as jmodels
 from pointcloud_segmentation_attention_tpu.eval import resident_serving as jrs
@@ -34,6 +40,7 @@ from pointcloud_segmentation_attention_tpu_torch.eval import full_scene
 from pointcloud_segmentation_attention_tpu_torch.eval import resident_serving as rs
 from pointcloud_segmentation_attention_tpu_torch.parallel import Mesh
 from pointcloud_segmentation_attention_tpu_torch.train import load_jax_variables
+from pointcloud_segmentation_attention_tpu_torch.utils import profiler
 from test_torch_model import _flat_variables, _unflatten
 
 TINY = dict(sa_npoints=(64, 32, 16, 8), sa_radii=(0.2, 0.4, 0.8, 1.2), sa_nsample=8,
@@ -210,9 +217,9 @@ def test_chunk_slack_guard_raises(weights):
     out."""
     _, model = weights
     server = _server(model)
-    name, n, n_pad, x_cap, x, dbuf, ready, request = server._stage(_scene(2200, 9))
+    name, n, n_pad, x, chunks, ready, request = server._stage(_scene(2200, 9))
     assert x > server.batch_size
-    short = (name, n, n_pad, x_cap, server.batch_size, dbuf, ready, request)  # one batch
+    short = (name, n, n_pad, server.batch_size, chunks, ready, request)  # one batch
     with pytest.raises(RuntimeError, match="slack was exceeded"):
         server._fetch(server._compute(short))
 
@@ -330,3 +337,122 @@ def test_reduced_feature_server_equals_host_path_and_jax(name, use_colors, use_n
     theirs = jrs.ResidentSceneServer(state, NPOINTS, batch_size=4, layout="f32",
                                      pad_multiple=4096, **kw).predict_scene(sc)
     np.testing.assert_array_equal(got, theirs)
+
+
+# ---- the count the server stages from the card's chunker ------------------------------
+
+@pytest.mark.parametrize("chunk_size, margin", GEOMETRIES)
+def test_chunker_phases_compose_to_make_scene_chunker(chunk_size, margin):
+    """Phase 1 (``_chunk_runs``) once, then phase 2 (``_chunk_table``) at
+    several slot counts, equals ``make_scene_chunker`` at each, bit for bit;
+    a chunk's composition does not depend on the slot count, and phase 1's
+    count is ``chunk_count``'s on the decoded coordinates."""
+    sc = _scene(2200, 13)
+    layout = rs.SceneLayout("q16", 4096)
+    buf = layout.pack(sc["points"], sc["colors"], sc["normals"])
+    n = len(sc["points"])
+    runs = rs._chunk_runs(rs._decode_scene(torch.from_numpy(buf), layout)["points"], n,
+                          NPOINTS, 3, chunk_size, margin)
+    x = int(runs.n_chunks)
+    assert x == rs.chunk_count(layout.decode_host(buf)["points"][:n], NPOINTS, chunk_size,
+                               margin)
+    first = None
+    for x_cap in (x, x + 1, rs._bucket(x, 16), 2 * x + 7):
+        got = rs._chunk_table(runs, x_cap, NPOINTS)
+        want = rs.make_scene_chunker(layout, x_cap, NPOINTS, seed=3, chunk_size=chunk_size,
+                                     margin=margin)(torch.from_numpy(buf), n)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+        idx, mask, n_chunks = (t.numpy() for t in got)
+        assert int(n_chunks) == x and idx.shape == (x_cap, NPOINTS)
+        assert not idx[x:].any() and not mask[x:].any()
+        if first is None:
+            first = idx, mask
+        np.testing.assert_array_equal(idx[:x], first[0])
+        np.testing.assert_array_equal(mask[:x], first[1])
+
+
+@pytest.mark.parametrize("kind", ["q16", "f32"])
+@pytest.mark.parametrize("chunk_size, margin", GEOMETRIES)
+@pytest.mark.parametrize("use_colors, use_normals", [(True, True)] + REDUCED_FEATURES)
+def test_staged_count_is_the_host_count_and_jax(weights, kind, chunk_size, margin, use_colors,
+                                                use_normals):
+    """The count ``_stage`` reads back from the chunker (here on the CPU)
+    equals ``chunk_count`` on ``decode_host``'s coordinates and JAX's, for
+    each layout, geometry and feature set; the staged chunks are
+    ``make_scene_chunker``'s at the slots that count needs."""
+    _, model = weights
+    sc = _scene(2200, 31 + 2 * use_colors + use_normals)
+    server = _server(model, layout=kind, seed=2, chunk_size=chunk_size, margin=margin,
+                     use_colors=use_colors, use_normals=use_normals)
+    name, n, n_pad, x, (scene, idx, mask, n_chunks), ready, request = server._stage(sc)
+    assert ready is None and set(scene) == {"points"} | ({"colors"} if use_colors else set()) | (
+        {"normals"} if use_normals else set())
+    layout = server._layout(n_pad)
+    buf = layout.pack(sc["points"], sc["colors"] if use_colors else None,
+                      sc["normals"] if use_normals else None)
+    decoded = layout.decode_host(buf)["points"][:n]
+    assert x == int(n_chunks) == rs.chunk_count(decoded, NPOINTS, chunk_size, margin) == \
+        jrs.chunk_count(decoded, NPOINTS, chunk_size, margin)
+    assert len(idx) == rs._bucket(x, 4 * server.batch_size)
+    want = rs.make_scene_chunker(layout, len(idx), NPOINTS, seed=2, chunk_size=chunk_size,
+                                 margin=margin)(torch.from_numpy(buf), n)
+    for a, b in zip((idx, mask, n_chunks), want):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("group_size", [1, 3])
+def test_scheduled_slots_are_exactly_the_batches_the_count_needs(weights, group_size):
+    """Counters ``serve.slots`` and ``serve.chunks``: a room gets
+    ``B * ceil(n_chunks / B)`` slots, no slack; a group's lanes each get
+    the batches of its largest room."""
+    _, model = weights
+    rooms = [_scene(1200 + 400 * i, 40 + i) for i in range(4)]
+    batch = 4
+    layout = rs.SceneLayout("q16", 4096)
+    counts = [rs.chunk_count(layout.decode_host(layout.pack(r["points"], r["colors"],
+                                                            r["normals"]))["points"][
+        :len(r["points"])], NPOINTS) for r in rooms]
+    batches = [-(-c // batch) for c in counts]
+    if group_size == 1:
+        slots = batch * sum(batches)
+    else:
+        slots = batch * group_size * sum(max(batches[i:i + group_size])
+                                         for i in range(0, len(rooms), group_size))
+    server = _server(model, layout="q16", group_size=group_size, batch_size=batch)
+    profiler.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            list(server.predict_scenes(iter(rooms)))
+        counters = profiler.snapshot()["counters"]
+    finally:
+        profiler.reset()
+    assert counters["serve.chunks"] == sum(counts)
+    assert counters["serve.slots"] == slots
+
+
+@pytest.mark.parametrize("kind", ["q16", "f32"])
+def test_served_labels_are_the_chunkers_chunks_through_the_predict_step(weights, kind):
+    """``predict_scenes``'s labels equal ``make_scene_chunker``'s chunks,
+    at exactly the batches the count needs, fed through
+    ``make_resident_predict_step`` and stitched, label for label; and the
+    group path's equal them."""
+    _, model = weights
+    rooms = [_scene(1300 + 350 * i, 50 + i) for i in range(3)]
+    served = dict(_server(model, layout=kind, seed=4).predict_scenes(iter(rooms)))
+    grouped = dict(_server(model, layout=kind, seed=4, group_size=2).predict_scenes(iter(rooms)))
+    layout = rs.SceneLayout(kind, 4096)
+    step = rs.make_resident_predict_step(model, layout, 4, NPOINTS)
+    for sc in rooms:
+        n = len(sc["points"])
+        buf = torch.from_numpy(layout.pack(sc["points"], sc["colors"], sc["normals"]))
+        x = rs.chunk_count(layout.decode_host(buf.numpy())["points"][:n], NPOINTS)
+        slots = 4 * -(-x // 4)
+        idx, mask, n_chunks = rs.make_scene_chunker(layout, slots, NPOINTS, seed=4)(buf, n)
+        assert int(n_chunks) == x
+        scene = rs._decode_scene(buf, layout)
+        labels = torch.cat([step(scene, idx[b:b + 4]) for b in range(0, slots, 4)])
+        want = rs.make_stitch(layout.n_pad)(labels, idx, mask)[:n].numpy().astype(np.int32)
+        np.testing.assert_array_equal(served[sc["scene_name"]], want)
+        np.testing.assert_array_equal(grouped[sc["scene_name"]], want)

@@ -166,10 +166,11 @@ def test_server_spans_and_counters_a_room():
     for rec in snap["records"]:
         by_name.setdefault(rec["name"], []).append(rec)
     for name in ("serve.stage", "serve.compute", "serve.label_wait", "serve.pack",
-                 "serve.decode_host", "serve.chunk_count", "serve.upload"):
+                 "serve.chunk_count", "serve.chunk_wait", "serve.upload"):
         assert sorted(r["request"] for r in by_name[name]) == [0, 1, 2], name
-    for name in ("serve.pack", "serve.decode_host", "serve.chunk_count", "serve.upload"):
+    for name in ("serve.pack", "serve.chunk_count", "serve.upload"):
         assert {r["parent"] for r in by_name[name]} == {"serve.stage"}
+    assert {r["parent"] for r in by_name["serve.chunk_wait"]} == {"serve.chunk_count"}
     stage_threads = {r["thread"] for r in by_name["serve.stage"]}
     assert stage_threads.isdisjoint({r["thread"] for r in by_name["serve.compute"]})
     assert len(by_name["prefetch.wait"]) >= 3
@@ -178,7 +179,8 @@ def test_server_spans_and_counters_a_room():
     assert c["serve.vertices"] == sum(len(r["points"]) for r in rooms)
     assert c["serve.chunks"] == sum(n for n, _ in fetched)
     assert c["serve.slots"] == sum(cap for _, cap in fetched)
-    assert 0 < c["serve.chunks"] < c["serve.slots"]
+    assert [cap for _, cap in fetched] == [4 * -(-n // 4) for n, _ in fetched]
+    assert 0 < c["serve.chunks"] <= c["serve.slots"] < c["serve.chunks"] + 4 * len(rooms)
     names = {e.name for e in prof.events()}
     assert {"serve.compute", "serve.label_wait", "prefetch.wait"} <= names
 
