@@ -114,6 +114,16 @@ Phases (each raises on failure; the script then exits non-zero):
    attention-train -- phase 6 for ``sem_seg_attention`` on the flagship's
                    batches (10 timed steps): all seven kernels launched in its
                    own window, every loss finite.
+   The Point Transformer (``point_transformer_seg``):
+   knn          -- the kNN kernel (``csrc/knn.cu``) bit-identical (idx and
+                   dist) to ``knn_point`` at each of the 9 calls of a B16 x
+                   8192 forward (FPS centres) and at edge shapes running
+                   every variant of ``knn.plan``; each call's wall and device
+                   ms beside its bound.
+   point-transformer -- one ``make_sampling_train_step`` step at B16 x 8192
+                   against ``tests/plain_point_transformer.py`` on the card
+                   (loss, gradients, BN statistics; ``PT_STEP_*``); 10 timed steps: median,
+                   points/s, peak memory, 9 kNN launches a step.
    The PointNet++ classification and part-segmentation families
    (``FAMILY_N``: ModelNet40's B16 x 1024 xyz only, ShapeNet-part's B16 x
    2048 with normals):
@@ -299,6 +309,7 @@ import contextlib
 import copy
 import functools
 import glob
+import importlib.util
 import inspect
 import io
 import json
@@ -351,7 +362,11 @@ from pointcloud_segmentation_attention_tpu_torch.ops import geometry as plain  #
 from pointcloud_segmentation_attention_tpu_torch.ops.cuda import (  # noqa: E402
     ball_query as bq_kernel,
     fps as fps_kernel,
+    knn as knn_kernel,
     three_nn as nn_kernel,
+)
+from pointcloud_segmentation_attention_tpu_torch.models import (  # noqa: E402
+    point_transformer as pt_model,
 )
 from pointcloud_segmentation_attention_tpu_torch.ops.cuda import (  # noqa: E402
     group_gather as gather_kernels,
@@ -4586,6 +4601,204 @@ def phase_ablation_recipes(dev) -> dict:
     return out
 
 
+# ---- the Point Transformer: its kNN kernel and its training step ---------------------
+
+PT_REFERENCE = os.path.join(ROOT, "tests", "plain_point_transformer.py")
+PT_STEP_LOSS_RTOL = 1e-5   # tests/test_torch_point_transformer.py's limits, which the card
+PT_STEP_GRAD_GAP = 1e-3    # meets with room (loss, gradients and BN statistics read equal
+PT_STEP_BN_TOL = dict(rtol=1e-4, atol=1e-5)  # bit for bit at B4 on an H100)
+
+
+def knn_work(b: int, m: int, n: int, k: int):
+    """Bytes (both clouds in, distances and indices out) and operations (8 a
+    (query, point) pair) of one kNN call."""
+    return b * n * 12 + b * m * 12 + b * m * k * 8, 8.0 * b * m * n
+
+
+def pt_knn_calls(xyz: torch.Tensor) -> list:
+    """The kNN calls of one Point Transformer forward of ``xyz``: a downward
+    transition's (its FPS centres among the level's points) and each level's
+    self kNN, as (label, points, queries, k)."""
+    calls, level = [], xyz
+    for i, k in enumerate(pt_model.NSAMPLE):
+        if pt_model.STRIDE[i] != 1:
+            m = max(1, level.shape[1] // pt_model.STRIDE[i])
+            centres = plain.gather_point(level, ops.farthest_point_sample(level, m)).contiguous()
+            calls.append((f"L{i + 1} down", level, centres, k))
+            level = centres
+        calls.append((f"L{i + 1} self", level, level, k))
+    return calls
+
+
+def check_knn_edges(dev, rng: np.random.RandomState) -> list:
+    """The kNN kernel bit-identical (idx and dist) to its plain version at
+    edge shapes that together run every variant of ``knn.plan`` (lists of 8
+    and 16, one and two queries a thread, whole and ring), the shared
+    memory opt-in above 48 KB, k past N, ties; returns the cases' labels."""
+    def cloud(b, n):
+        return torch.from_numpy((rng.rand(b, n, 3) * EXTENT).astype(np.float32)).to(dev)
+
+    same = torch.full((2, 1024, 3), 0.7, dtype=torch.float32, device=dev)
+    cases = [
+        # (label, points, queries, k)
+        ("k 16 past N 5", cloud(2, 5), cloud(2, 7), 16),
+        ("N 1", cloud(2, 1), cloud(2, 100), 3),
+        ("k 1", cloud(3, 500), cloud(3, 300), 1),
+        ("k 9 in the list of 16", cloud(3, 777), cloud(3, 200), 9),
+        ("whole above 48 KB, N 6000", cloud(2, 6000), cloud(2, 2000), 16),
+        ("ring, N 10,000, k 16", cloud(2, 10_000), cloud(2, 3000), 16),
+        ("ring, N 10,000, k 8, Q 1", cloud(2, 10_000), cloud(2, 300), 8),
+        ("ring, Q 2: B16 M 8192 N 8300", cloud(16, 8300), cloud(16, 8192), 8),
+        ("all-equal points", same, cloud(2, 500), 16),
+        ("duplicates, 50 distinct of 1024", _duplicated(rng, 2, 1024, 50, dev), cloud(2, 512),
+         16),
+        ("B1 self", *(lambda c: (c, c))(cloud(1, 8192)), 8),
+        ("B17 self", *(lambda c: (c, c))(cloud(17, 2048)), 16),
+        ("M 8191 odd, Q 2", cloud(16, 8192), cloud(16, 8191), 8),
+    ]
+    labels, seen, opt_in = [], set(), False
+    for label, pts, q, k in cases:
+        b, n, _ = pts.shape
+        m = q.shape[1]
+        p = knn_kernel.plan(b, m, n, min(k, n))
+        seen.add((p.kmax, p.per_thread, p.variant))
+        opt_in = opt_in or p.smem_bytes > kernels.DEFAULT_SMEM_BYTES
+        label = (f"{label} (B{b} M{m} N{n} k{k}: list {p.kmax}, Q {p.per_thread}, {p.variant}, "
+                 f"{p.threads} threads, {p.smem_bytes} B)")
+        dist, idx = ops.knn_point(k, pts, q)
+        pdist, pidx = plain.knn_point(k, pts, q)
+        check_equal(f"knn idx {label}", idx, pidx)
+        check_equal(f"knn dist {label}", dist, pdist)
+        labels.append(label)
+    torch.cuda.synchronize()
+    want = {(8, 1, v) for v in ("whole", "ring")} | {(8, 2, v) for v in ("whole", "ring")} | {
+        (16, 1, v) for v in ("whole", "ring")}
+    if want != seen or not opt_in:
+        raise AssertionError(f"knn edge shapes missed plan variants {want - seen} "
+                             f"(a whole cloud above 48 KB: {opt_in})")
+    return labels
+
+
+def phase_knn(dev, batch: int = 16, n: int = 8192, reps: int = 20) -> dict:
+    """The kNN kernel (``csrc/knn.cu``) bit-identical to ``plain.knn_point``
+    at every call of a B x N Point Transformer forward (random clouds, FPS
+    centres) and at the edge shapes of ``check_knn_edges``; each of the
+    forward's calls timed (CUDA events, then profiler device time) beside
+    its bound."""
+    rng = np.random.RandomState(23)
+    xyz = torch.from_numpy((rng.rand(batch, n, 3) * EXTENT).astype(np.float32)).to(dev)
+    rep = {"levels": {}, "level_device": {}, "level_bound": {}}
+    timed = []
+    for label, pts, q, k in pt_knn_calls(xyz):
+        dist, idx = ops.knn_point(k, pts, q)
+        pdist, pidx = plain.knn_point(k, pts, q)
+        check_equal(f"knn idx {label}", idx, pidx)
+        check_equal(f"knn dist {label}", dist, pdist)
+        b, m, npts = q.shape[0], q.shape[1], pts.shape[1]
+        label = f"{label} M{m} N{npts} k{k}"
+        rep["level_bound"][label] = bound(*knn_work(b, m, npts, k))
+        timed.append((label, functools.partial(knn_kernel.knn_point, k, pts, q)))
+    rep["edges"] = check_knn_edges(dev, rng)
+    for label, fn in timed:
+        rep["levels"][label] = time_ms(fn, reps)
+        rep["level_device"][label] = device_ms(fn)
+    rep["ms"] = sum(rep["levels"].values())
+    rep["device_ms"] = sum(rep["level_device"].values())
+    rep["bound_ms"] = sum(v[0] for v in rep["level_bound"].values())
+    log(f"[knn] B{batch} x {n}: all {len(timed)} calls of a forward and {len(rep['edges'])} "
+        f"edge shapes equal to the plain version; a forward's calls {rep['ms']:.4f} ms wall, "
+        f"{rep['device_ms']:.4f} ms device, bound {rep['bound_ms']:.4f} ms; per call "
+        "wall/device/bound: " + " ".join(
+            f"{k}={v:.4f}/{rep['level_device'][k]:.4f}/{rep['level_bound'][k][0]:.4f}"
+            for k, v in rep["levels"].items()))
+    return rep
+
+
+def _plain_point_transformer():
+    spec = importlib.util.spec_from_file_location("plain_point_transformer", PT_REFERENCE)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_point_transformer(dev, rooms, batch: int = 16, npoints: int = 8192,
+                            steps: int = 10, warmup: int = 3) -> dict:
+    """``point_transformer_seg`` through ``make_sampling_train_step`` on the
+    card: one step (given draws) against the plain reference
+    (``tests/plain_point_transformer.py``, float32, TF32 off, on the same
+    batch and weights): loss, every gradient and the BN statistics within
+    ``PT_STEP_*``; then ``steps`` timed steps after ``warmup``: median
+    step, points/s, peak memory, every loss finite, kernel launches a step
+    (the kNN's 9 a step among them)."""
+    plain_pt = _plain_point_transformer()
+    scenes = device_sampler.ResidentScenes(rooms, device=dev)
+    model = models.seeded_model("point_transformer_seg", seed=0, device=dev)
+    weights = {k: v.clone() for k, v in model.state_dict().items()}
+    state = TrainState(model)
+    step = device_sampler.make_sampling_train_step(scenes, npoints, num_classes=21)
+    ids = torch.arange(batch, dtype=torch.int32) % len(rooms)
+    draws = device_sampler.make_draws(scenes, ids.to(dev), npoints,
+                                      torch.Generator(device=dev).manual_seed(5))
+    data = device_sampler.sample_chunk_batch(scenes, ids.to(dev), draws, npoints)
+    state, m = step(state, ids, draws=draws)
+    got_grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+    got_stats = {k: v.detach().clone() for k, v in model.named_buffers()}
+    cfg = dict(planes=list(pt_model.PLANES), blocks=list(pt_model.BLOCKS),
+               nsample=list(pt_model.NSAMPLE), stride=list(pt_model.STRIDE),
+               share_planes=pt_model.SHARE_PLANES)
+    loss, grads, stats = plain_pt.loss_and_grads(weights, cfg, data,
+                                                 schedules.scannet_bn_momentum(0))
+    # A gradient's gap over its norm, or over the median's where it is smaller:
+    # the biases ahead of a train-mode BN or the softmax read rounding noise.
+    median = float(np.median([float(g.norm()) for g in grads.values()]))
+    gaps = {k: float((got_grads[k] - g).norm()) / max(float(g.norm()), median)
+            for k, g in grads.items()}
+    worst = max(gaps, key=gaps.get)
+    loss_rel = abs(float(m["loss"]) - float(loss)) / abs(float(loss))
+    stat_err = max(check_close(f"point-transformer BN {k}", got_stats[k], v, PT_STEP_BN_TOL)
+                   for k, v in stats.items())
+    if loss_rel > PT_STEP_LOSS_RTOL or gaps[worst] > PT_STEP_GRAD_GAP:
+        raise AssertionError(f"point-transformer step: loss rel {loss_rel:.3e}, worst gradient "
+                             f"{worst} {gaps[worst]:.3e}")
+    del grads, stats, got_grads, data
+    gen = torch.Generator(device=dev).manual_seed(9)
+    step_ids = [torch.from_numpy(np.random.RandomState(s).permutation(len(rooms) * 4)[:batch]
+                                 % len(rooms)).to(torch.int32) for s in range(warmup + steps)]
+    for s in step_ids[:warmup]:
+        step(state, s, seed=int(torch.randint(1 << 30, (1,), generator=gen, device=dev)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    knn_kernel.knn_point.launches = 0
+    events, losses = [], []
+    for s in step_ids[warmup:]:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, out = step(state, s, seed=7)
+        end.record()
+        events.append((start, end))
+        losses.append(out["loss"])
+    torch.cuda.synchronize()
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"point-transformer: non-finite training loss: {losses}")
+    launches = {**kernels.launch_counts(), "knn": knn_kernel.knn_point.launches}
+    per_step = {k: v / steps for k, v in launches.items()}
+    if per_step["knn"] != 9:
+        raise AssertionError(f"point-transformer: {per_step['knn']} kNN launches a step, not 9")
+    med = float(np.median([a.elapsed_time(b) for a, b in events]))
+    res = dict(loss_rel=loss_rel, worst_grad=[worst, gaps[worst]], bn_max_abs=stat_err,
+               step_ms_median=med, points_per_s=batch * npoints / (med / 1e3),
+               peak_bytes=torch.cuda.max_memory_allocated(), launches_per_step=per_step,
+               losses=losses)
+    log(f"[point-transformer] one sampler step B{batch} x {npoints} against the plain "
+        f"reference: loss rel {loss_rel:.3e}, worst gradient {worst} {gaps[worst]:.3e} of "
+        f"max(norm, median), BN statistics max |diff| {stat_err:.3e}; {steps} timed steps: "
+        f"median {med:.2f} ms ({res['points_per_s']:.0f} points/s), max_memory_allocated "
+        f"{res['peak_bytes'] / 2**30:.2f} GiB, launches a step {json.dumps(per_step)}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script drives the GPU port",
@@ -4639,6 +4852,10 @@ def main() -> int:
                         name="sem_seg_attention", tag="attention-train-parity")
     attn_train = phase("attention-train", phase_train, dev, batches, steps=10, warmup=3,
                        name="sem_seg_attention", tag="attention-train")
+
+    # The Point Transformer: its kNN kernel at the cell's calls, then its step.
+    pt_knn = phase("knn", phase_knn, dev)
+    pt_step = phase("point-transformer", phase_point_transformer, dev, rooms)
 
     # The full attention nets at B16 x 8192 with colors and normals: the
     # three against the CPU, attention_net's step against the CPU, 10 timed
@@ -4844,6 +5061,7 @@ def main() -> int:
                                  "forward_b16_peak_bytes": attn_fwd["peak_bytes"],
                                  "forward_b16_device_ms": attn_fwd_device_ms,
                                  "train_parity": attn_parity, "train": attn_train},
+                   "point_transformer": {"knn": pt_knn, "step": pt_step},
                    "trainer": trained, "sampler": sampler, "remat": remat,
                    "recipe_zero_precompute": recipe,
                    "family": {"model": fam_model, "train_parity": fam_parity,

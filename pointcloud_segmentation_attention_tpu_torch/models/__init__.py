@@ -3,7 +3,9 @@
 classifiers (``cls_ssg``, ``cls_msg``) and part segmenters (``part_seg``,
 ``part_seg_msg_one_hot``), the full attention nets (``attention_net``,
 ``attention_net_mlp``, ``pooling_attention_net``) and the PointNet v1
-family (``pointnet1_*``)."""
+family (``pointnet1_*``); and, beyond the JAX package's names,
+``point_transformer_seg`` (Point Transformer semantic segmentation,
+``models/point_transformer.py``)."""
 from __future__ import annotations
 
 import functools
@@ -23,6 +25,9 @@ from pointcloud_segmentation_attention_tpu_torch.models.part_seg import (
     PartSegMSGOneHot,
     PartSegSSG,
 )
+from pointcloud_segmentation_attention_tpu_torch.models.point_transformer import (
+    PointTransformerSeg,
+)
 from pointcloud_segmentation_attention_tpu_torch.models.sem_seg import SemSegNet
 from pointcloud_segmentation_attention_tpu_torch.nn.layers import reset_parameters
 
@@ -37,7 +42,8 @@ _REGISTRY = {
     "sem_seg_attention_and_pooling": dict(in_features=0, sa_pooling=("attention_and_pool",) * 4),
 }
 # The other families: registry name -> class (ModelNet40: 40 classes;
-# ShapeNet-part: 50 parts; the attention nets: ScanNet's 21; S3DIS: 13).
+# ShapeNet-part: 50 parts; the attention nets and the Point Transformer:
+# ScanNet's 21; S3DIS: 13).
 _FAMILIES = {
     "cls_ssg": ClsSSG,
     "cls_msg": ClsMSG,
@@ -46,6 +52,7 @@ _FAMILIES = {
     "attention_net": AttentionNetModel,
     "attention_net_mlp": functools.partial(AttentionNetModel, inner_kind="mlp"),
     "pooling_attention_net": PoolingAttentionNetModel,
+    "point_transformer_seg": PointTransformerSeg,
 }
 # The PointNet v1 family takes the point block alone (xyz, or S3DIS's nine
 # channels): ``in_features`` may be given only as 0.
@@ -71,8 +78,9 @@ def get_model(name: str, *, device="cuda", generator: Optional[torch.Generator] 
     it to ``device``.  ``kwargs`` go to the model's class (``SemSegNet``
     for the sem_seg names, overriding the name's defaults; ``ClsSSG``,
     ``ClsMSG`` and the attention nets take ``num_classes``, ``in_features``
-    and ``dropout_rate``; the part segmenters ``num_classes`` and
-    ``dropout_rate``; the PointNet v1 models their classes' arguments);
+    and ``dropout_rate``; ``point_transformer_seg`` ``num_classes``
+    and ``in_features`` (6 by default); the part segmenters
+    ``num_classes`` and ``dropout_rate``; the PointNet v1 models their classes' arguments);
     ``sem_seg_attention_single_layer`` also takes ``layer_idx``.  Every
     name takes ``compute_dtype`` (``torch.bfloat16`` for bf16 products with
     float32 parameters and results).  An unknown name raises ``KeyError``."""
@@ -119,5 +127,5 @@ def available_models():
 
 
 __all__ = ["AttentionNetModel", "ClsMSG", "ClsSSG", "PartSegMSGOneHot", "PartSegSSG",
-           "PoolingAttentionNetModel", "SemSegNet", "available_models", "get_model",
-           "pointnet1", "seeded_model"]
+           "PointTransformerSeg", "PoolingAttentionNetModel", "SemSegNet", "available_models",
+           "get_model", "pointnet1", "seeded_model"]

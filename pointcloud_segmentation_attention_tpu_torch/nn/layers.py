@@ -232,13 +232,15 @@ def linear(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
 
 def _xavier_uniform_(kernel: torch.Tensor, bias: torch.Tensor,
                      generator: Optional[torch.Generator]) -> None:
-    """Draw an (in, out) kernel xavier-uniform from ``generator``; zero the bias."""
+    """Draw an (in, out) kernel xavier-uniform from ``generator``; zero the
+    bias, if there is one."""
     c_in, c_out = kernel.shape
     bound = math.sqrt(6.0 / (c_in + c_out))
     with torch.no_grad():
         u = torch.rand(kernel.shape, generator=generator)
         kernel.copy_((2.0 * u - 1.0) * bound)
-        bias.zero_()
+        if bias is not None:
+            bias.zero_()
 
 
 class PointConv(nn.Module):
@@ -247,17 +249,19 @@ class PointConv(nn.Module):
     ``mixed_matmul`` in ``compute_dtype`` (``torch.matmul`` in float32), as
     the JAX package leaves it to XLA.  Column-parallel under tensor
     parallelism (the module's docstring); ``gather=False`` leaves the
-    output as this rank's block (for a ``SharedMLP``'s next layer)."""
+    output as this rank's block (for a ``SharedMLP``'s next layer).
+    ``bias=False`` leaves the bias out (a product straight into a BN, as
+    the Point Transformer's bias-free linears; not column-parallel)."""
 
     tp_columns = ("kernel", ("bias", "bn.scale", "bn.bias"))
 
     def __init__(self, c_in: int, features: int, bn: bool = True, activation: bool = True,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, bias: bool = True):
         super().__init__()
         self.features = features
         self.compute_dtype = compute_dtype
         self.kernel = nn.Parameter(torch.empty(c_in, features))
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.bias = nn.Parameter(torch.zeros(features)) if bias else None
         self.bn = ScheduledBatchNorm(features) if bn else None
         self.activation = activation
         self.reset_parameters()
@@ -268,7 +272,8 @@ class PointConv(nn.Module):
 
     def forward(self, x: torch.Tensor, bn_momentum: float = 0.9,
                 gather: bool = True) -> torch.Tensor:
-        y = linear(x, self.kernel, self.bias, self.compute_dtype)
+        y = (linear(x, self.kernel, self.bias, self.compute_dtype) if self.bias is not None
+             else mixed_matmul(x, self.kernel, self.compute_dtype))
         if self.bn is not None:
             y = self.bn(y, momentum=bn_momentum)
         if self.activation:

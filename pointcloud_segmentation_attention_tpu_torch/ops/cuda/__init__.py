@@ -17,7 +17,8 @@ per call of the wrapper, however many kernels its C entry point queues (each
 backward queues up to four: three CSR passes of ``csrc/csr.cuh`` and its
 consuming pass; ``three_interpolate.interpolation_csr`` and
 ``group_gather.group_gather_csr`` run the CSR passes alone and have
-counters of their own).  The gather and the interpolation are
+counters of their own, as has ``knn.knn_point``, the Point Transformer's
+kNN, which is not one of the seven).  The gather and the interpolation are
 differentiable through ``torch.autograd.Function``s whose backward is a
 kernel too (``group_gather.GroupPoint``,
 ``three_interpolate.ThreeInterpolate``); a wrapper that has no backward
@@ -46,7 +47,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("fps.cu", "ball_query.cu", "group_gather.cu", "group_gather_bwd.cu",
-           "three_nn.cu", "three_interpolate.cu", "three_interpolate_bwd.cu")
+           "three_nn.cu", "three_interpolate.cu", "three_interpolate_bwd.cu", "knn.cu")
 HEADERS = ("point_tiles.cuh", "csr.cuh")  # included by sources; part of the library's hash
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -65,6 +66,9 @@ _SIGNATURES = {
     "psa_group_gather_csr": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "psa_three_nn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "psa_three_nn_allow_smem": (_I, _P),  # the stream is not used
+    # the kNN takes k and its plan's fields after the shapes
+    "psa_knn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "psa_knn_allow_smem": (_I, _P),  # the stream is not used
     # the interpolation takes its plan's fields after the shapes
     "psa_three_interpolate": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "psa_interpolation_csr": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),

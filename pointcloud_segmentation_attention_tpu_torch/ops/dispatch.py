@@ -8,7 +8,9 @@ backward is a kernel as well, so training on the card gets its gradients
 from ``csrc/*_bwd.cu``; on the CPU, autograd differentiates the plain
 version.
 The plain versions in ``ops/geometry.py`` serve CPU tensors (the tests) and
-are the oracles the kernels are held against.
+are the oracles the kernels are held against.  ``knn_point`` is the span
+``nn.knn`` and counts its calls, queries and (query, point) pairs under a
+profiler (``utils/profiler.py``).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from pointcloud_segmentation_attention_tpu_torch.ops import geometry
+from pointcloud_segmentation_attention_tpu_torch.utils import profiler
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -58,6 +61,22 @@ def group_point_with_counts(points: torch.Tensor, idx: torch.Tensor,
             return group_gather.GroupPoint.apply(points, idx)
         return group_gather.group_point(points, idx)
     return geometry.group_point(points, idx)
+
+
+def knn_point(k: int, xyz: torch.Tensor,
+              new_xyz: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``geometry.knn_point``; on the card ``csrc/knn.cu``, which serves k <= 16."""
+    with profiler.span("nn.knn"):
+        b, n = xyz.shape[0], xyz.shape[1]
+        m = new_xyz.shape[1]
+        profiler.count("knn.calls")
+        profiler.count("knn.queries", b * m)
+        profiler.count("knn.pairs", b * m * n)
+        if _on_cuda(xyz):
+            from pointcloud_segmentation_attention_tpu_torch.ops.cuda import knn
+
+            return knn.knn_point(k, xyz.float().contiguous(), new_xyz.float().contiguous())
+        return geometry.knn_point(k, xyz, new_xyz)
 
 
 def three_nn(xyz1: torch.Tensor, xyz2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

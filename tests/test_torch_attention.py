@@ -268,7 +268,8 @@ def test_full_width_attention_matches_jax():
 def test_registry_names_defaults_and_overrides():
     assert tmodels.available_models() == [
         "attention_net", "attention_net_mlp", "cls_msg", "cls_ssg", "part_seg",
-        "part_seg_msg_one_hot", "pointnet1_cls", "pointnet1_cls_basic", "pointnet1_part_seg",
+        "part_seg_msg_one_hot", "point_transformer_seg", "pointnet1_cls",
+        "pointnet1_cls_basic", "pointnet1_part_seg",
         "pointnet1_seg", "pointnet1_sem_seg", "pooling_attention_net",
         "sem_seg", "sem_seg_attention", "sem_seg_attention_and_pooling",
         "sem_seg_attention_single_layer", "sem_seg_features"]

@@ -1,6 +1,6 @@
 """The host side of the port's kernels, without a card or nvcc: the launch
-plans of FPS, ball query and three-NN (``ops/cuda/{fps,ball_query,
-three_nn}.py:plan``; the interpolation's are in
+plans of FPS, ball query, three-NN and the kNN (``ops/cuda/{fps,
+ball_query,three_nn,knn}.py:plan``; the interpolation's are in
 ``test_torch_interpolation.py``), the lean launch path
 (``ops/cuda/__init__.py:launch``) and the wrappers' argument lists against a
 stub ctypes library."""
@@ -16,6 +16,7 @@ import torch
 from pointcloud_segmentation_attention_tpu_torch.ops import cuda
 from pointcloud_segmentation_attention_tpu_torch.ops.cuda import ball_query as bq
 from pointcloud_segmentation_attention_tpu_torch.ops.cuda import fps
+from pointcloud_segmentation_attention_tpu_torch.ops.cuda import knn
 from pointcloud_segmentation_attention_tpu_torch.ops.cuda import three_interpolate as ti
 from pointcloud_segmentation_attention_tpu_torch.ops.cuda import three_nn as tn
 from pointcloud_segmentation_attention_tpu_torch.ops.geometry import radius_threshold
@@ -146,6 +147,44 @@ def test_ball_query_and_three_nn_plans_refuse_empty_shapes(plan, args):
         plan(*args)
 
 
+@pytest.mark.parametrize("b, m, n, k, want", [
+    # The Point Transformer's kNN calls at B16 x 8192: the level-1 self kNN,
+    # a downward transition's centres, and the coarsest level.
+    (16, 8192, 8192, 8, knn.KnnPlan(8, 2, 256, 8192, 1, 16 + 8192 * 12, 16, "whole")),
+    (16, 2048, 8192, 16, knn.KnnPlan(16, 1, 256, 8192, 1, 16 + 8192 * 12, 8, "whole")),
+    (16, 512, 512, 16, knn.KnnPlan(16, 1, 64, 512, 1, 16 + 512 * 12, 8, "whole")),
+    (16, 32, 32, 16, knn.KnnPlan(16, 1, 32, 32, 1, 16 + 32 * 12, 1, "whole")),
+    (2, 100, 20_000, 3, knn.KnnPlan(8, 1, 32, 1024, 2, 16 + 2 * 1024 * 12, 4, "ring")),
+])
+def test_knn_plan_at_main_path_shapes(b, m, n, k, want):
+    assert knn.plan(b, m, n, k) == want
+
+
+@pytest.mark.parametrize("n", [1, 16, 31, 33, 1000, 8192, 8193, 40_000])
+@pytest.mark.parametrize("m", [1, 7, 32, 2048, 8192, 8193])
+@pytest.mark.parametrize("k", [1, 3, 8, 9, 16])
+def test_knn_plan_covers_every_query(n, m, k):
+    if k > n:
+        with pytest.raises(ValueError):
+            knn.plan(2, m, n, k)
+        return
+    for b in (1, 3, 16, 17):
+        p = knn.plan(b, m, n, k)
+        run = p.threads * p.per_thread  # queries a block
+        assert p.threads in knn.THREADS and p.kmax in knn.KMAX and k <= p.kmax
+        assert p.per_thread == 1 or p.kmax == 8  # a list of 16 takes one query a thread
+        assert p.blocks * run >= m > (p.blocks - 1) * run  # every query, no idle block
+        _check_ring(p, n)
+        assert p.variant == ("whole" if -(-n // 32) * 32 <= knn.WHOLE_MAX_POINTS else "ring")
+
+
+@pytest.mark.parametrize("args", [(0, 8, 8, 1), (2, 0, 8, 1), (2, 8, 0, 1), (2, 8, 8, 0),
+                                  (2, 8, 8, 9), (2, 64, 64, 17)])
+def test_knn_plan_refuses_empty_shapes_and_large_k(args):
+    with pytest.raises(ValueError):
+        knn.plan(*args)
+
+
 # ---- the launch path -----------------------------------------------------
 
 class _StubFn:
@@ -229,7 +268,7 @@ def test_launch_resolves_each_entry_point_once(stub_library, monkeypatch):
             cuda.launch(name, dev, 1, 2)
         monkeypatch.setattr(cuda, "_lock", _NoLock())  # loaded: no lock from here on
     (lib,) = stub_library.libs
-    assert set(cuda._SIGNATURES) == set(lib.lookups) and len(lib.lookups) == 10
+    assert set(cuda._SIGNATURES) == set(lib.lookups) and len(lib.lookups) == 12
     assert lib.lookups == {name: 1 for name in cuda._SIGNATURES}
     for name, argtypes in cuda._SIGNATURES.items():
         fn = lib._fns[name]
@@ -263,7 +302,8 @@ def cpu_wrappers(stub_library, monkeypatch):
     monkeypatch.setattr(bq, "check_input", accept)
     monkeypatch.setattr(tn, "check_input", accept)
     monkeypatch.setattr(ti, "check_input", accept)
-    bq.ball_query.launches = tn.three_nn.launches = 0
+    monkeypatch.setattr(knn, "check_input", accept)
+    bq.ball_query.launches = tn.three_nn.launches = knn.knn_point.launches = 0
     ti.three_interpolate.launches = ti.three_interpolate_backward.launches = 0
     ti.interpolation_csr.launches = 0
     return stub_library
@@ -375,3 +415,31 @@ def test_three_interpolate_backward_wrapper_passes_its_plan(cpu_wrappers, b, n, 
                          p.threads, 0xBEEF)
     assert len(call) == len(cuda._SIGNATURES["psa_three_interpolate_bwd"])
     assert ti.three_interpolate_backward.launches == 1
+
+
+@pytest.mark.parametrize("b, m, n, k", [(16, 8192, 8192, 8), (16, 2048, 8192, 16),
+                                        (3, 5, 40_000, 12), (2, 7, 5, 16)])
+def test_knn_wrapper_passes_its_plan_and_pads_past_n(cpu_wrappers, b, m, n, k):
+    xyz, new_xyz = torch.zeros(b, n, 3), torch.zeros(b, m, 3)
+    dist, idx = knn.knn_point(k, xyz, new_xyz)
+    assert dist.shape == idx.shape == (b, m, k) and idx.dtype == torch.int32
+    (lib,) = cpu_wrappers.libs
+    (call,) = lib._fns["psa_knn"].calls
+    k_eff = min(k, n)  # the kernel fills k_eff slots, the wrapper repeats the last
+    p = knn.plan(b, m, n, k_eff)
+    assert call[:2] == (new_xyz.data_ptr(), xyz.data_ptr())
+    assert call[4:] == (b, m, n, k_eff, p.kmax, p.per_thread, p.threads, p.tile, p.stages,
+                        p.smem_bytes, p.blocks, 0xBEEF)
+    assert len(call) == len(cuda._SIGNATURES["psa_knn"])
+    allowed = lib._fns["psa_knn_allow_smem"].calls
+    assert allowed == ([(p.smem_bytes, 0xBEEF)] if p.smem_bytes > cuda.DEFAULT_SMEM_BYTES else [])
+    assert knn.knn_point.launches == 1
+
+
+def test_knn_wrapper_refuses_large_k_and_gradients(cpu_wrappers):
+    xyz = torch.zeros(1, 40, 3)
+    with pytest.raises(ValueError, match="k <= 16"):
+        knn.knn_point(17, xyz, xyz)
+    with pytest.raises(RuntimeError, match="no backward"):
+        knn.knn_point(8, xyz.clone().requires_grad_(True), xyz)
+    assert not any(lib._fns["psa_knn"].calls for lib in cpu_wrappers.libs)  # nothing launched

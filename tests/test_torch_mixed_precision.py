@@ -263,7 +263,7 @@ def test_every_registry_model_runs_bf16(name):
             args.append(torch.tensor([1, 5]))
     else:
         args = [_t(rng.rand(2, 64, 3).astype(np.float32))]
-        if name == "sem_seg_features":  # colors and normals
+        if name in ("sem_seg_features", "point_transformer_seg"):  # colors and normals
             args.append(_t(rng.rand(2, 64, 6).astype(np.float32)))
     model.eval()
     with torch.no_grad():
