@@ -62,8 +62,8 @@ Phases (each raises on failure; the script then exits non-zero):
                    q16 store on the card, each step's rows equal to the
                    packed run's byte for byte), and once with
                    ``input='sampler'`` (raw rooms on the card, no
-                   precompute directory may appear; CUDA events around
-                   ``sample_chunk_batch`` give its share of the step), and
+                   precompute directory may appear; its step replays a
+                   CUDA graph from the second on), and
                    once more with the sampler and ``compute_dtype=
                    'bfloat16'``:
                    launch counters zeroed just
@@ -124,6 +124,17 @@ Phases (each raises on failure; the script then exits non-zero):
                    against ``tests/plain_point_transformer.py`` on the card
                    (loss, gradients, BN statistics; ``PT_STEP_*``); 10 timed steps: median,
                    points/s, peak memory, 9 kNN launches a step.
+   step-graph   -- (``phase_step_graph``) the sampler step's CUDA graph
+                   against the eager step for ``sem_seg_features``,
+                   ``sem_seg_attention`` and ``point_transformer_seg`` at B16
+                   x 8192: 8 steps from step 0 and 8 across the BN
+                   schedule's first stair (a recapture), metrics, gradients,
+                   parameters, BN statistics and Adam moments equal bit for
+                   bit after every step, the returned metrics distinct; the
+                   last replay profiled beside its eager twin: the same
+                   hand-written kernels by name, the same kernels under each
+                   ``nn.`` span, and the counts and launches it adds back equal
+                   to the eager step's.
    The PointNet++ classification and part-segmentation families
    (``FAMILY_N``: ModelNet40's B16 x 1024 xyz only, ShapeNet-part's B16 x
    2048 with normals):
@@ -2221,48 +2232,61 @@ TRAINER_RUNS = (("npz", dict(input="npz")),
 
 
 @contextlib.contextmanager
-def timed_train_steps(events: list, host_ms: list, rows: list, sampled: list):
+def timed_train_steps(events: list, host_ms: list, rows: list, graphs: list):
     """CUDA events around every ``seg_train_step`` that ``trainer.train``
     calls, appended to ``events``, and the host milliseconds each call took
     to queue its work, appended to ``host_ms`` (no host sync is added).
     ``rows`` gets each step's packed rows: a packed batch's own, or for the
     resident corpus the (corpus, index) pair its rows are gathered by.
-    ``sampled`` gets CUDA events around each ``sample_chunk_batch`` call of
-    the sampler input."""
+    The sampler input's step replays a CUDA graph from its second step
+    (``train/step_graph.py``), so there the events and host time are those
+    of the whole step, cut included, and ``graphs`` gets each sampler step
+    (its ``graphed`` the ``step_graph.GraphedStep``)."""
     inner, gather = train_steps.seg_train_step, device_replay.gather_batch
-    sample = device_sampler.sample_chunk_batch
+    make_step = device_sampler.make_sampling_train_step
+    in_sampler_step = []
 
-    def timed(state, batch, *args, **kwargs):
+    def timed_call(fn, *args, **kwargs):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
-        if "packed" in batch:
-            rows.append(batch["packed"])
-        out = inner(state, batch, *args, **kwargs)
+        out = fn(*args, **kwargs)
         end.record()
         host_ms.append((time.perf_counter() - t0) * 1e3)
         events.append((start, end))
         return out
 
+    def timed(state, batch, *args, **kwargs):
+        if "packed" in batch:
+            rows.append(batch["packed"])
+        if in_sampler_step:
+            return inner(state, batch, *args, **kwargs)
+        return timed_call(inner, state, batch, *args, **kwargs)
+
+    def making(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def sampler_step(*a, **kw):
+            in_sampler_step.append(True)
+            try:
+                return timed_call(step, *a, **kw)
+            finally:
+                in_sampler_step.pop()
+
+        graphs.append(step)
+        return sampler_step
+
     def gathered(corpus, idx, spec):
         rows.append((corpus, idx.clone()))
         return gather(corpus, idx, spec)
 
-    def sampling(*args, **kwargs):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = sample(*args, **kwargs)
-        end.record()
-        sampled.append((start, end))
-        return out
-
     train_steps.seg_train_step, device_replay.gather_batch = timed, gathered
-    device_sampler.sample_chunk_batch = sampling
+    device_sampler.make_sampling_train_step = making
     try:
         yield
     finally:
         train_steps.seg_train_step, device_replay.gather_batch = inner, gather
-        device_sampler.sample_chunk_batch = sample
+        device_sampler.make_sampling_train_step = make_step
 
 
 def _host_rows(rows: list) -> list:
@@ -2315,12 +2339,12 @@ def _train_run(dev, cfg: TrainConfig, tag: str, expect_steps: int) -> dict:
     events: list = []
     host_ms: list = []
     rows: list = []
-    sampled: list = []
+    graphs: list = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    with timed_train_steps(events, host_ms, rows, sampled):
+    with timed_train_steps(events, host_ms, rows, graphs):
         summary = trainer.train(cfg, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2344,10 +2368,10 @@ def _train_run(dev, cfg: TrainConfig, tag: str, expect_steps: int) -> dict:
     if vals:
         _check_restores(dev, cfg, tag, best)
     step_ms = [a.elapsed_time(b) for a, b in events]
-    sample_ms = [a.elapsed_time(b) for a, b in sampled]
-    if cfg.input == "sampler" and len(sample_ms) != expect_steps:
-        raise AssertionError(f"trainer {tag}: {len(sample_ms)} sampler calls in "
-                             f"{expect_steps} steps")
+    replays = sum(s.graphed.graph.replays for s in graphs if s.graphed is not None)
+    if len(step_ms) != expect_steps or (cfg.input == "sampler" and not replays):
+        raise AssertionError(f"trainer {tag}: {len(step_ms)} timed steps and {replays} graph "
+                             f"replays in {expect_steps} steps")
     res = dict(
         input=tag, wall_s=wall, summary=summary, launches=launches,
         launches_per_step={k: v / expect_steps for k, v in launches.items()},
@@ -2359,10 +2383,8 @@ def _train_run(dev, cfg: TrainConfig, tag: str, expect_steps: int) -> dict:
         train_loss=[r["train_loss"] for r in epochs],
         val_miou=[r["val_miou"] for r in vals], val_loss=[r["val_loss"] for r in vals],
         best_checkpoint=best and os.path.basename(best), step_rows=rows)
-    if sample_ms:
-        res.update(sampler_ms=sample_ms, sampler_ms_median=float(np.median(sample_ms)),
-                   sampler_share_median=float(np.median(
-                       [a / (a + b) for a, b in zip(sample_ms, step_ms)])))
+    if cfg.input == "sampler":
+        res.update(graph_replays=replays)
     log(f"[trainer] {tag}: {summary['final_step']} steps, {cfg.epochs} epochs, "
         f"{len(vals)} validations, "
         f"{wall:.2f} s wall; points/s per epoch (the trainer's, host pipeline included) "
@@ -2374,8 +2396,8 @@ def _train_run(dev, cfg: TrainConfig, tag: str, expect_steps: int) -> dict:
         f"{' '.join(f'{v:.3f}' for v in res['train_loss'])}, val mIoU "
         f"{' '.join(f'{v:.4f}' for v in res['val_miou'])}"
         + (f"; {os.path.basename(best)} restores bit for bit" if vals else "")
-        + (f"; sample_chunk_batch median {res['sampler_ms_median']:.3f} ms (CUDA events), "
-           f"{res['sampler_share_median']:.3f} of sampler + step" if sample_ms else ""))
+        + (f"; {replays} of {expect_steps} steps replayed the step's CUDA graph"
+           if cfg.input == "sampler" else ""))
     log(f"[trainer] {tag}: launches in the trainer window: {json.dumps(launches)}")
     return res
 
@@ -4799,6 +4821,36 @@ def phase_point_transformer(dev, rooms, batch: int = 16, npoints: int = 8192,
     return res
 
 
+GRAPH_PARITY = os.path.join(ROOT, "tests", "graph_parity.py")
+
+
+def phase_step_graph(dev, rooms) -> list:
+    """The sampler step's CUDA graph (``train/step_graph.py``) against the
+    eager step for each of ``tests/graph_parity.MODELS`` at B16 x 8192 from
+    the same seeded weights: 8 steps from step 0 (one eager, seven
+    replays) and 8 across the BN schedule's first stair (a recapture), loss,
+    accuracy, confusion, every gradient, parameter, BN statistic and Adam
+    moment equal bit for bit after every step (``graph_parity.run``)."""
+    spec = importlib.util.spec_from_file_location("graph_parity", GRAPH_PARITY)
+    parity = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(parity)
+    stair = parity.first_stair()
+    out = []
+    for name in parity.MODELS:
+        for start in (0, stair - 2):
+            t0 = time.perf_counter()
+            res = parity.run(name, dev, start_step=start, rooms=rooms)
+            res["seconds"] = time.perf_counter() - t0
+            out.append(res)
+            log(f"[step-graph] {name} from step {start}: {res['captures']} capture(s) of "
+                f"{res['segments']} graphs each, {res['replays']} replays, every step equal "
+                f"to the eager one bit for bit; the last replay launched the eager step's "
+                f"hand-written kernels {json.dumps(res['hand_written'])}, under the same nn. "
+                f"spans {json.dumps(res['under_nn_spans'])}, as many as its tallied counts "
+                f"and launches ({res['seconds']:.1f} s)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script drives the GPU port",
@@ -4856,6 +4908,7 @@ def main() -> int:
     # The Point Transformer: its kNN kernel at the cell's calls, then its step.
     pt_knn = phase("knn", phase_knn, dev)
     pt_step = phase("point-transformer", phase_point_transformer, dev, rooms)
+    phase("step-graph", phase_step_graph, dev, rooms)
 
     # The full attention nets at B16 x 8192 with colors and normals: the
     # three against the CPU, attention_net's step against the CPU, 10 timed

@@ -243,6 +243,17 @@ def kernels() -> Dict[str, object]:
     }
 
 
+def counted() -> Dict[str, object]:
+    """Every wrapper with a ``launches`` counter by name: the seven of
+    ``kernels()``, the two CSR passes and the kNN."""
+    from pointcloud_segmentation_attention_tpu_torch.ops.cuda import (
+        group_gather, knn, three_interpolate,
+    )
+
+    return {**kernels(), "group_gather_csr": group_gather.group_gather_csr,
+            "interpolation_csr": three_interpolate.interpolation_csr, "knn": knn.knn_point}
+
+
 def reset_launches() -> None:
     for fn in kernels().values():
         fn.launches = 0

@@ -65,7 +65,7 @@ from pointcloud_segmentation_attention_tpu_torch.data.scannet.chunks import (
 from pointcloud_segmentation_attention_tpu_torch.data.wire import exact_div
 from pointcloud_segmentation_attention_tpu_torch.device import resolve
 from pointcloud_segmentation_attention_tpu_torch.parallel.mesh import data_parallel, local_rows
-from pointcloud_segmentation_attention_tpu_torch.train import steps
+from pointcloud_segmentation_attention_tpu_torch.train import schedules, step_graph, steps
 from pointcloud_segmentation_attention_tpu_torch.train.device_replay import (
     _augment_generator,
     rotate_batch_z,
@@ -401,25 +401,52 @@ def make_sampling_train_step(scenes: ResidentScenes, npoints: int, *, class_weig
     (``rotate_batch_z``, seeded by (seed, 77, state.step)).  With a
     data-parallel ``mesh`` the step takes the global scene ids and runs on
     this rank's rows (``parallel.data_parallel``); explicit ``draws`` are
-    then this rank's rows.  Under a profiler the step is the span
-    ``train.step`` (counted in ``train.steps``), the chunks' cut
-    ``train.sample`` within it."""
+    then this rank's rows.  Where ``step_graph.eligible`` holds (one CUDA
+    device, no remat, no augmentation) the step replays a CUDA graph of
+    the cut, forward, backward and BN updates, equal to the eager step bit
+    for bit (``train/step_graph.py``).  Under a profiler the step is the
+    span ``train.step`` (counted in ``train.steps``), the chunks' cut
+    ``train.sample`` within it (within the replay's ``train.graph_replay``
+    on the graphed path, without the draws).  The step's ``graphed``
+    attribute is its ``step_graph.GraphedStep`` once it has one."""
+    remat = step_kwargs.get("remat", "none")
+
+    def eager(state, scene_ids, seed, draws):
+        dev = scenes.device
+        with profiler.span("train.sample"):
+            ids = torch.as_tensor(scene_ids).to(dev, non_blocking=True)
+            if draws is None:
+                draws = make_draws(scenes, ids, npoints,
+                                   _sampler_generator(dev, seed, state.step))
+            batch = sample_chunk_batch(scenes, ids, draws, npoints, class_weights,
+                                       occupancy=occupancy)
+            if augment:
+                batch = rotate_batch_z(batch, scenes,
+                                       _augment_generator(dev, seed, state.step))
+        return steps.seg_train_step(state, batch, seed, **step_kwargs)
+
+    def body(state, static, generator, bn_momentum):
+        with profiler.span("train.sample"):
+            batch = sample_chunk_batch(scenes, static["ids"], (static["centres"], static["u"]),
+                                       npoints, class_weights, occupancy=occupancy)
+        return steps.seg_gradient_step(state, batch, generator, bn_momentum,
+                                       num_classes=step_kwargs.get("num_classes", 21))
 
     def step(state: TrainState, scene_ids, seed: int = 0, draws=None):
         with profiler.span("train.step", state.step):
             profiler.count("train.steps")
             dev = scenes.device
-            with profiler.span("train.sample"):
-                ids = torch.as_tensor(scene_ids).to(dev, non_blocking=True)
-                if draws is None:
-                    draws = make_draws(scenes, ids, npoints,
-                                       _sampler_generator(dev, seed, state.step))
-                batch = sample_chunk_batch(scenes, ids, draws, npoints, class_weights,
-                                           occupancy=occupancy)
-                if augment:
-                    batch = rotate_batch_z(batch, scenes,
-                                           _augment_generator(dev, seed, state.step))
-            return steps.seg_train_step(state, batch, seed, **step_kwargs)
+            if not step_graph.eligible(dev, mesh, remat, augment):
+                return eager(state, scene_ids, seed, draws)
+            if step.graphed is None:
+                step.graphed = step_graph.GraphedStep(dev, body, step_kwargs.get(
+                    "bn_schedule", schedules.scannet_bn_momentum))
+            ids = torch.as_tensor(scene_ids).to(dev, non_blocking=True)
+            if draws is None:
+                draws = make_draws(scenes, ids, npoints,
+                                   _sampler_generator(dev, seed, state.step))
+            inputs = {"ids": ids, "centres": draws[0], "u": draws[1]}
+            return step.graphed(state, inputs, seed, lambda: eager(state, ids, seed, draws))
 
+    step.graphed = None
     return data_parallel(step, mesh)
-

@@ -111,11 +111,16 @@ def expand_wire_batch(batch: Dict[str, torch.Tensor], wire_spec=None) -> Dict[st
     return out
 
 
+def dropout_stream_seed(seed: int, step: int) -> int:
+    """The seed of one step's dropout stream, mixed from (seed, step) as the
+    JAX step folds the step into its key."""
+    return int(np.random.SeedSequence((seed, step)).generate_state(1, np.uint64)[0])
+
+
 def _dropout_generator(device: torch.device, seed: int, step: int) -> torch.Generator:
-    """The dropout stream of one step, seeded from (seed, step) as the JAX
-    step folds the step into its key.  Its numbers are not JAX's."""
-    mixed = np.random.SeedSequence((seed, step)).generate_state(1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(mixed))
+    """The dropout stream of one step (``dropout_stream_seed``).  Its numbers are
+    not JAX's."""
+    return torch.Generator(device=device).manual_seed(dropout_stream_seed(seed, step))
 
 
 def _batch_metrics(logits: torch.Tensor, labels: torch.Tensor, num_classes: int,
@@ -230,11 +235,30 @@ def seg_train_step(
     (with the BN updates) and the optimizer are the spans
     ``train.forward``, ``train.backward`` and ``train.optimizer``.
     """
-    model = state.model
-    dev = _device_of(model)
+    dev = _device_of(state.model)
     batch = expand_wire_batch(_to_device(batch, dev), wire_spec)
-    bn_momentum = bn_schedule(state.step)
-    generator = _dropout_generator(dev, dropout_seed, state.step)
+    loss, logits = _forward_backward(state, batch, bn_schedule(state.step),
+                                     _dropout_generator(dev, dropout_seed, state.step), remat)
+    _, out = _batch_metrics(logits.detach(), batch["labels"], num_classes, loss)
+    return finish_train_step(state, out)
+
+
+def finish_train_step(state: TrainState, metrics: Dict) -> Tuple[TrainState, Dict]:
+    """A training step's tail, after its gradients: the Adam update (span
+    ``train.optimizer``), then ``metrics`` with the step's 'learning_rate'.
+    ``seg_train_step`` and the replayed step (``train/step_graph.py``) both
+    end here."""
+    with profiler.span("train.optimizer", state.step):
+        lr = state.apply_gradients()
+    metrics["learning_rate"] = lr
+    return state, metrics
+
+
+def _forward_backward(state: TrainState, batch: Dict[str, torch.Tensor], bn_momentum: float,
+                      generator: torch.Generator, remat: str):
+    """Train-mode forward with the loss, then backward and the BN updates:
+    ``(loss, logits)``, each parameter's ``.grad`` this batch's gradient."""
+    model = state.model
     model.train()
     model.zero_grad(set_to_none=True)
     with profiler.span("train.forward", state.step):
@@ -242,11 +266,19 @@ def seg_train_step(
     with profiler.span("train.backward", state.step):
         loss.backward()
         apply_bn_updates(bn_records)
-    with profiler.span("train.optimizer", state.step):
-        lr = state.apply_gradients()
-    _, out = _batch_metrics(logits.detach(), batch["labels"], num_classes, loss)
-    out["learning_rate"] = lr
-    return state, out
+    return loss, logits
+
+
+def seg_gradient_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                      generator: torch.Generator, bn_momentum: float, *,
+                      num_classes: int = 21) -> Dict[str, torch.Tensor]:
+    """``seg_train_step``'s device work without its optimizer update, the
+    part a CUDA graph captures (``train/step_graph.py``): on a standard
+    batch on the model's device, dropout drawn from ``generator``, the
+    forward, loss, backward and BN updates (``remat='none'``); returns the
+    batch's 'loss', 'accuracy' and 'confusion'; ``state.step`` stays."""
+    loss, logits = _forward_backward(state, batch, bn_momentum, generator, "none")
+    return _batch_metrics(logits.detach(), batch["labels"], num_classes, loss)[1]
 
 
 def seg_eval_step(state: TrainState, batch: Dict, *, num_classes: int = 21,

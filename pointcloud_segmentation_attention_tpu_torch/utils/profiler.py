@@ -22,13 +22,19 @@ capped list of records (name, thread, start and end in
 ``time.perf_counter_ns``, the innermost span open on the same thread,
 request).  A span without a request takes its parent's.  ``snapshot()``
 reads it all; ``reset()`` clears it.  Nothing is written to disk.
+
+A CUDA graph's capture (``train/step_graph.py``) runs Python once for many
+replays: inside ``tally()`` the counts go to a dict that each replay adds
+back, and inside ``split_at_spans(mark)`` each span calls ``mark`` at its
+ends, where the capture starts a new graph, so that a replay launches each
+stretch under the spans that enclosed it.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.autograd.profiler as _autograd_profiler
@@ -92,6 +98,10 @@ class _Registry:
 
 
 _REGISTRY = _Registry()
+# While ``tally()`` runs: the dict that ``count`` adds to instead of the registry.
+_TALLY: Optional[Dict[str, int]] = None
+# While ``split_at_spans(mark)`` runs: (its thread's ident, ``mark``).
+_SPLIT: Optional[Tuple[int, Callable[[str, str], None]]] = None
 
 
 class _Span:
@@ -146,23 +156,78 @@ class _Off:
 _OFF = _Off()
 
 
+class _Split:
+    """A span opened inside ``split_at_spans``: ``mark`` at both its ends,
+    outside the span itself (``_Span`` or ``_OFF``)."""
+    __slots__ = ("name", "inner", "mark")
+
+    def __init__(self, name: str, inner, mark: Callable[[str, str], None]):
+        self.name, self.inner, self.mark = name, inner, mark
+
+    def __enter__(self):
+        self.mark("enter", self.name)
+        return self.inner.__enter__()
+
+    def __exit__(self, exc_type, exc, tb):
+        out = self.inner.__exit__(exc_type, exc, tb)
+        if exc_type is None:
+            self.mark("exit", self.name)
+        return out
+
+
 def span(name: str, request=None):
     """Context manager: a span of the program's work named ``name``, under
     request ``request`` (a room's sequence number, a step's number; by
     default the enclosing span's).  Records only while a profiler session
-    records."""
-    if not _autograd_profiler._is_profiler_enabled:
-        return _OFF
-    return _Span(name, request)
+    records; inside ``split_at_spans`` it also marks its ends."""
+    inner = _Span(name, request) if _autograd_profiler._is_profiler_enabled else _OFF
+    split = _SPLIT
+    if split is not None and split[0] == threading.get_ident():
+        return _Split(name, inner, split[1])
+    return inner
 
 
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the counter ``name``, only while a profiler session
-    records."""
+    records; inside ``tally()``, to the tally, always."""
+    tally_ = _TALLY
+    if tally_ is not None:
+        with _REGISTRY.lock:
+            tally_[name] = tally_.get(name, 0) + int(n)
+        return
     if not _autograd_profiler._is_profiler_enabled:
         return
     with _REGISTRY.lock:
         _REGISTRY.counters[name] = _REGISTRY.counters.get(name, 0) + int(n)
+
+
+@contextlib.contextmanager
+def tally():
+    """Context: every ``count`` made inside, from any thread, goes to the
+    dict yielded (name -> total), whether or not a profiler records, and
+    not to the registry."""
+    global _TALLY
+    counts: Dict[str, int] = {}
+    previous, _TALLY = _TALLY, counts
+    try:
+        yield counts
+    finally:
+        _TALLY = previous
+
+
+@contextlib.contextmanager
+def split_at_spans(mark: Callable[[str, str], None]):
+    """Context: every span opened inside on this thread calls
+    ``mark('enter', name)`` before it opens and ``mark('exit', name)`` after
+    it closes (not when it closes on an exception), whether or not a
+    profiler records; spans of other threads do not.  A CUDA graph's
+    capture cuts itself there (``train/step_graph.py``)."""
+    global _SPLIT
+    previous, _SPLIT = _SPLIT, (threading.get_ident(), mark)
+    try:
+        yield
+    finally:
+        _SPLIT = previous
 
 
 def snapshot() -> Dict:

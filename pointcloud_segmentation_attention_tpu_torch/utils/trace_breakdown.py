@@ -198,20 +198,21 @@ def _open_at(index: dict, t) -> str:
     return "+".join(sorted(n for n in (_innermost(e, t) for e in index.values()) if n))
 
 
-def kernel_ms_by_span(prof) -> dict:
-    """Kernel time (copies and sets left out) by the innermost program span
-    (``utils/profiler.span``) around each kernel's launch.  The launch is
-    the CUDA API event that shares the kernel's correlation id (an ATen
-    op's launch and the ctypes launches of ``ops/cuda`` alike); its span
-    is the first program span among its CPU parents, else the innermost one
-    open on its thread at the launch, and on a thread with no program span
-    (autograd's backward threads) the innermost ones open on the other
-    threads.  Kernels with none count as ``(no program span)``."""
+def kernel_spans(prof) -> list:
+    """(span, kernel event) for each kernel (copies and sets left out): the
+    innermost program span (``utils/profiler.span``) around the kernel's
+    launch.  The launch is the CUDA API event that shares the kernel's
+    correlation id (an ATen op's launch, the ctypes launches of
+    ``ops/cuda`` and a CUDA graph's launch alike); its span is the first
+    program span among its CPU parents, else the innermost one open on its
+    thread at the launch, and on a thread with no program span (autograd's
+    backward threads) the innermost ones open on the other threads.
+    Kernels with none get ``(no program span)``."""
     events = prof.events()
     index = _span_index(events)
     launches = {e.id: e for e in events if e.device_type == torch.autograd.DeviceType.CPU
                 and e.name.startswith("cu") and "Launch" in e.name}
-    out = defaultdict(float)
+    out = []
     for k in _device_events(prof):
         if _is_copy(k.name):
             continue
@@ -226,7 +227,16 @@ def kernel_ms_by_span(prof) -> dict:
                 label = _innermost(index[launch.thread], launch.time_range.start)
             else:
                 label = _open_at(index, launch.time_range.start)
-        out[label or "(no program span)"] += k.time_range.elapsed_us() / 1e3
+        out.append((label or "(no program span)", k))
+    return out
+
+
+def kernel_ms_by_span(prof) -> dict:
+    """Kernel time (copies and sets left out) by the innermost program span
+    around each kernel's launch (``kernel_spans``)."""
+    out = defaultdict(float)
+    for label, k in kernel_spans(prof):
+        out[label] += k.time_range.elapsed_us() / 1e3
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
